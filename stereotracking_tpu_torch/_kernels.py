@@ -1,0 +1,149 @@
+"""Build, load and count the hand-written CUDA kernels.
+
+All ``csrc/*.cu`` sources compile with ``nvcc`` into ONE shared library with
+a plain C interface, loaded through ``ctypes``.  The build runs at first use
+and again whenever a source or a flag changes (the library's file name
+carries a hash of both), into ``_build/`` beside this file.  Nothing is
+built or loaded when this module is imported.
+
+Each C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; ``check`` raises on a non-zero status.  Each Python
+wrapper adds one to its kernel's launch count right after a launch, and
+nowhere else, so a run can show which kernels its main path went through.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent / 'csrc'
+BUILD_DIR = Path(__file__).resolve().parent / '_build'
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-O3',
+              '-std=c++17', '-shared', '-Xcompiler', '-fPIC')
+KERNELS = ('stem', 'stage1', 'stage2', 'depth')
+
+_launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+_lib = None
+build_seconds = None      # wall time of the last nvcc build (None: cached)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signatures: every entry returns the cudaError_t of its launch as int
+_SIGNATURES = {
+    # frame, is_disp, h, w, out_h, out_w, cout, weight, sb, out, stream
+    'st_focus_stem': (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    # x_rgb, x_disp, h, w, cin, cout, mid, nb, w_rgb, sb_rgb, w_disp,
+    # sb_disp, out, stream
+    'st_stage1_dual': (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                       _P),
+    # x, h, w, cin, cout, mid, nb, weights, sb, out, stream
+    'st_stage_csp': (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    # disp, h, w, scal, nbox, crop, bf, out, stream
+    'st_box_depth_stats': (_P, _I, _I, _P, _I, _I, _F, _P, _P),
+}
+
+
+def launch_counts() -> Dict[str, int]:
+    """Launches per kernel since the last ``reset_launch_counts``."""
+    return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    for k in _launches:
+        _launches[k] = 0
+
+
+def count_launch(name: str) -> None:
+    _launches[name] += 1
+
+
+def _nvcc() -> str:
+    home = os.environ.get('CUDA_HOME') or '/usr/local/cuda'
+    cand = Path(home) / 'bin' / 'nvcc'
+    if cand.exists():
+        return str(cand)
+    found = shutil.which('nvcc')
+    if found is None:
+        raise RuntimeError('nvcc not found (set CUDA_HOME); the CUDA '
+                           'kernels can only be built where the CUDA '
+                           'toolkit is installed')
+    return found
+
+
+def _sources():
+    return sorted(CSRC.glob('*.cu')), sorted(CSRC.glob('*.cuh'))
+
+
+def library_path() -> Path:
+    cu, cuh = _sources()
+    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for p in cu + cuh:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f'libst_kernels_{h.hexdigest()[:16]}.so'
+
+
+def build() -> Path:
+    """Compile the kernels unless a library of the same sources exists."""
+    global build_seconds
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu, _ = _sources()
+    tmp = out.with_suffix(f'.{os.getpid()}.tmp')
+    cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), *map(str, cu)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f'nvcc failed ({res.returncode}):\n'
+                           f'{" ".join(cmd)}\n{res.stdout}\n{res.stderr}')
+    os.replace(tmp, out)
+    build_seconds = time.perf_counter() - t0
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        lib.st_error_string.argtypes = [ctypes.c_int]
+        lib.st_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(status: int, name: str) -> None:
+    if status != 0:
+        msg = library().st_error_string(status).decode()
+        raise RuntimeError(f'{name}: CUDA error {status} ({msg})')
+
+
+def stream_ptr(t) -> int:
+    """The current stream of ``t``'s device, as a C pointer value."""
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_cuda(name: str, *tensors) -> None:
+    """Raise unless every tensor lies on the same CUDA device and is
+    contiguous (the kernels take dense NHWC / row-major buffers)."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != 'cuda' or t.device != dev:
+            raise ValueError(f'{name}: every tensor must be on {dev}, '
+                             f'got {t.device}')
+        if not t.is_contiguous():
+            raise ValueError(f'{name}: tensors must be contiguous')

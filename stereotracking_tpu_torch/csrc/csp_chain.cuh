@@ -1,0 +1,253 @@
+// One CSPDarknet stage evaluated for one 16 x 16 region, every intermediate
+// in shared memory, every convolution on the tensor cores (wmma, bf16 in,
+// float32 accumulate).  Used by the dual stage-1 kernel (stage1.cu) and the
+// generic stage kernel (stage2.cu).
+//
+// Stage: z = ConvBNAct 3x3 stride 2 (C_in -> C_out); main / short = ConvBNAct
+// 1x1 (C_out -> mid, mid = C_out / 2); nb bottlenecks
+// m = bf16(ConvBNAct3x3(ConvBNAct1x1(m)) + m); out = ConvBNAct 1x1 on
+// [m | short] (2 mid -> C_out).  Each ConvBNAct accumulates in float32 and
+// rounds to bf16 once (st_act), the rounding points of the Pallas kernels.
+//
+// Halo: the region is the output tile plus nb rings.  z and main are exact
+// on the whole region; each bottleneck 3x3 is evaluated on the whole region
+// too, reading its input as a flat (pixel-major) array with the row offsets
+// -17..+17, so a ring pixel reads a neighbour of the wrong row or a pad: the
+// exact area shrinks by one ring per bottleneck and after nb of them is the
+// tile (the Pallas kernels' shrinking-margin scheme).  conv1 outputs outside
+// the image are zeroed first (the 3x3's SAME zero padding); the entry conv
+// reads zeros outside the input.
+//
+// Shared memory: region A holds the entry conv's input patch, then main,
+// short, conv1 and the next main once the patch is dead; region Z holds z,
+// then the region's result; each warp owns a 16 x 16 float32 scratch tile
+// for its accumulator epilogues.
+#pragma once
+
+#include <mma.h>
+
+#include "common.cuh"
+
+namespace st_chain {
+
+using namespace nvcuda;
+
+constexpr int GW = 16;             // region width: one wmma M tile per row
+constexpr int GH = 16;             // region height
+constexpr int P = GH * GW;         // region pixels
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int IH = 2 * GH + 1;     // entry conv input patch
+constexpr int IW = 2 * GW + 1;
+constexpr int PAD = GW + 1;        // flat pad (pixels) around conv1's output
+
+struct StageDims {
+  int cin, cout, mid, nb;
+};
+
+// Weights: bf16 (K, N) row-major matrices; folded BN: float32 [scale; bias].
+// Field order of StageWeights.kernel_buffers() (ops/stage2_cuda.py).
+struct StageWeightPtrs {
+  const bf16 *entry_w, *ms_w, *c1_w, *c2_w, *fin_w;
+  const float *entry_sb, *ms_sb, *c1_sb, *c2_sb, *fin_sb;
+};
+
+__host__ __device__ inline StageWeightPtrs weight_ptrs(const bf16* w,
+                                                       const float* sb,
+                                                       StageDims d) {
+  StageWeightPtrs p;
+  p.entry_w = w;  w += 9 * d.cin * d.cout;
+  p.ms_w = w;     w += d.cout * 2 * d.mid;
+  p.c1_w = w;     w += d.nb * d.mid * d.mid;
+  p.c2_w = w;     w += d.nb * 9 * d.mid * d.mid;
+  p.fin_w = w;
+  p.entry_sb = sb;  sb += 2 * d.cout;
+  p.ms_sb = sb;     sb += 4 * d.mid;
+  p.c1_sb = sb;     sb += d.nb * 2 * d.mid;
+  p.c2_sb = sb;     sb += d.nb * 2 * d.mid;
+  p.fin_sb = sb;
+  return p;
+}
+
+__host__ __device__ inline size_t align128(size_t b) {
+  return (b + 127) / 128 * 128;
+}
+
+// Byte offsets of the shared-memory buffers.
+struct Layout {
+  size_t in, z, m, s, c1, m2, scratch, extra, total;
+};
+
+__host__ __device__ inline Layout layout(StageDims d, size_t extra_bytes) {
+  Layout L;
+  const size_t e = sizeof(bf16);
+  L.in = 0;
+  L.m = 0;
+  L.s = L.m + align128(P * d.mid * e);
+  L.m2 = L.s + align128(P * d.mid * e);
+  L.c1 = L.m2 + align128(P * d.mid * e);
+  const size_t chain_end = L.c1 + align128((P + 2 * PAD) * d.mid * e);
+  const size_t in_end = align128((size_t)IH * IW * d.cin * e);
+  L.z = chain_end > in_end ? chain_end : in_end;
+  L.scratch = L.z + align128(P * d.cout * e);
+  L.extra = L.scratch + WARPS * 256 * sizeof(float);
+  L.total = L.extra + align128(extra_bytes);
+  return L;
+}
+
+// out[p, n] for p < 16 m_tiles, n < 16 n_tiles: the warps share (m tile,
+// group of up to four n tiles) items; a_ptr(mt, ks) is the 16 x 16 A block
+// of k step ks (leading dimension lda), B the (K, N) weight matrix; epi(p,
+// n, acc) consumes each float32 sum.
+template <class APtr, class Epi>
+__device__ __forceinline__ void gemm(int m_tiles, int n_tiles, int k_steps,
+                                     int lda, APtr a_ptr, const bf16* B,
+                                     int ldb, float* scratch, Epi epi) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int groups = (n_tiles + 3) / 4;
+  for (int item = warp; item < m_tiles * groups; item += WARPS) {
+    const int mt = item / groups, nt0 = (item % groups) * 4;
+    const int nn = min(4, n_tiles - nt0);
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.0f);
+    for (int ks = 0; ks < k_steps; ++ks) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+      wmma::load_matrix_sync(a, a_ptr(mt, ks), lda);
+      const bf16* brow = B + (size_t)ks * 16 * ldb + nt0 * 16;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (j < nn) {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
+              b;
+          wmma::load_matrix_sync(b, brow + j * 16, ldb);
+          wmma::mma_sync(acc[j], a, b, acc[j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j < nn) {
+        wmma::store_matrix_sync(scratch, acc[j], 16, wmma::mem_row_major);
+        __syncwarp();
+        for (int i = lane; i < 256; i += 32)
+          epi(mt * 16 + i / 16, (nt0 + j) * 16 + i % 16, scratch[i]);
+        __syncwarp();
+      }
+    }
+  }
+}
+
+// Evaluates the stage on the region whose output origin is (oy0, ox0) (the
+// tile starts nb rings further in) and leaves the region's result in
+// smem + L.z as P x cout bf16 (exact on the centre tile).  x: (hin, win, cin)
+// bf16 NHWC in device memory; (hout, wout) = (hin / 2, win / 2).  All
+// threads of the block must call it; channel counts are multiples of 16.
+__device__ inline void region_chain(const bf16* __restrict__ x, int hin,
+                                    int win, int hout, int wout,
+                                    StageDims d, const StageWeightPtrs& w,
+                                    int oy0, int ox0, unsigned char* smem,
+                                    const Layout& L, bf16* result) {
+  const int tid = threadIdx.x;
+  const int cin = d.cin, cout = d.cout, mid = d.mid;
+  bf16* in = reinterpret_cast<bf16*>(smem + L.in);
+  bf16* z = reinterpret_cast<bf16*>(smem + L.z);
+  bf16* m = reinterpret_cast<bf16*>(smem + L.m);
+  bf16* s = reinterpret_cast<bf16*>(smem + L.s);
+  bf16* m2 = reinterpret_cast<bf16*>(smem + L.m2);
+  bf16* c1 = reinterpret_cast<bf16*>(smem + L.c1) + PAD * mid;
+  float* scratch = reinterpret_cast<float*>(smem + L.scratch) +
+                   (threadIdx.x >> 5) * 256;
+
+  // 1. entry conv input patch, 16-byte chunks (zeros outside the input)
+  const int iy0 = 2 * oy0 - 1, ix0 = 2 * ox0 - 1;
+  const int c8 = cin / 8;
+  for (int i = tid; i < IH * IW * c8; i += THREADS) {
+    const int c = (i % c8) * 8, p = i / c8;
+    const int y = iy0 + p / IW, xx = ix0 + p % IW;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (y >= 0 && y < hin && xx >= 0 && xx < win)
+      v = *reinterpret_cast<const uint4*>(x + ((size_t)y * win + xx) * cin +
+                                          c);
+    *reinterpret_cast<uint4*>(in + (size_t)p * cin + c) = v;
+  }
+  __syncthreads();
+
+  // 2. z = ConvBNAct 3x3 stride 2: m tile = one region row, A rows two
+  //    input pixels apart (lda = 2 cin)
+  {
+    const int cpt = cin / 16;
+    gemm(GH, cout / 16, 9 * cpt, 2 * cin,
+         [&](int mt, int ks) {
+           const int tap = ks / cpt, c0 = (ks % cpt) * 16;
+           return in + ((2 * mt + tap / 3) * IW + tap % 3) * cin + c0;
+         },
+         w.entry_w, cout, scratch, [&](int p, int n, float acc) {
+           z[p * cout + n] = st_act(acc, w.entry_sb[n], w.entry_sb[cout + n]);
+         });
+  }
+  __syncthreads();
+
+  // 3. main | short (one 1x1 GEMM, N = 2 mid) over the region
+  gemm(P / 16, 2 * mid / 16, cout / 16, cout,
+       [&](int mt, int ks) { return z + mt * 16 * cout + ks * 16; },
+       w.ms_w, 2 * mid, scratch, [&](int p, int n, float acc) {
+         const bf16 v = st_act(acc, w.ms_sb[n], w.ms_sb[2 * mid + n]);
+         if (n < mid) m[p * mid + n] = v;
+         else s[p * mid + n - mid] = v;
+       });
+  for (int i = tid; i < PAD * mid; i += THREADS) {   // conv1's flat pads
+    c1[i - PAD * mid] = __float2bfloat16_rn(0.0f);
+    c1[P * mid + i] = __float2bfloat16_rn(0.0f);
+  }
+  __syncthreads();
+
+  // 4. bottlenecks on the whole region
+  for (int b = 0; b < d.nb; ++b) {
+    const float* sb1 = w.c1_sb + b * 2 * mid;
+    gemm(P / 16, mid / 16, mid / 16, mid,
+         [&](int mt, int ks) { return m + mt * 16 * mid + ks * 16; },
+         w.c1_w + b * mid * mid, mid, scratch,
+         [&](int p, int n, float acc) {
+           const int y = oy0 + p / GW, xx = ox0 + p % GW;
+           const bool inside = y >= 0 && y < hout && xx >= 0 && xx < wout;
+           c1[p * mid + n] = inside ? st_act(acc, sb1[n], sb1[mid + n])
+                                    : __float2bfloat16_rn(0.0f);
+         });
+    __syncthreads();
+    const float* sb2 = w.c2_sb + b * 2 * mid;
+    const int cpt = mid / 16;
+    gemm(P / 16, mid / 16, 9 * cpt, mid,
+         [&](int mt, int ks) {
+           const int tap = ks / cpt, c0 = (ks % cpt) * 16;
+           const int off = (tap / 3 - 1) * GW + tap % 3 - 1;
+           return c1 + (mt * 16 + off) * mid + c0;
+         },
+         w.c2_w + b * 9 * mid * mid, mid, scratch,
+         [&](int p, int n, float acc) {
+           const float v = st_f(st_act(acc, sb2[n], sb2[mid + n]));
+           m2[p * mid + n] = __float2bfloat16_rn(v + st_f(m[p * mid + n]));
+         });
+    __syncthreads();
+    bf16* t = m;
+    m = m2;
+    m2 = t;
+  }
+
+  // 5. final 1x1 on [blocks | short]
+  {
+    const int cpt = mid / 16;
+    gemm(P / 16, cout / 16, 2 * cpt, mid,
+         [&](int mt, int ks) {
+           return ks < cpt ? m + mt * 16 * mid + ks * 16
+                           : s + mt * 16 * mid + (ks - cpt) * 16;
+         },
+         w.fin_w, cout, scratch, [&](int p, int n, float acc) {
+           result[p * cout + n] =
+               st_act(acc, w.fin_sb[n], w.fin_sb[cout + n]);
+         });
+  }
+  __syncthreads();
+}
+
+}  // namespace st_chain

@@ -1,0 +1,72 @@
+"""YOLOX detector: dual backbone + PAFPN + head, and the fused postprocess.
+
+Port of ``stereotracking_tpu/models/detector.py`` (``DetectorConfig``,
+the dual-branch ``YOLOXDetector`` and ``detector_predict``: forward,
+decode, score filter, class-aware NMS, ``scale_factor`` rescale).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+from torch import nn
+
+from ..ops.nms import NMSResult, batched_nms, multiclass_candidates
+from .csp_darknet import CSPDarknetDual
+from .pafpn import YOLOXPAFPN
+from .yolox_head import YOLOXHead, decode_predictions
+
+
+class DetectorConfig(NamedTuple):
+    num_classes: int = 1
+    deepen_factor: float = 0.33
+    widen_factor: float = 0.5
+    strides: Tuple[int, ...] = (8, 16, 32)
+    backbone: str = 'dual'
+    score_thr: float = 0.01
+    nms_iou_thr: float = 0.5
+    max_per_img: int = 300
+    pre_nms_top_k: int = 2048
+
+
+class YOLOXDetector(nn.Module):
+    """Dual-branch backbone -> PAFPN -> decoupled head (mm key names)."""
+
+    def __init__(self, cfg: DetectorConfig = DetectorConfig()):
+        super().__init__()
+        if cfg.backbone != 'dual':
+            raise NotImplementedError(
+                f'backbone {cfg.backbone!r} is not ported (only dual)')
+        self.cfg = cfg
+        self.backbone = CSPDarknetDual(cfg.deepen_factor, cfg.widen_factor)
+        self.neck = YOLOXPAFPN(deepen_factor=cfg.deepen_factor,
+                               widen_factor=cfg.widen_factor)
+        self.bbox_head = YOLOXHead(num_classes=cfg.num_classes,
+                                   widen_factor=cfg.widen_factor,
+                                   strides=cfg.strides)
+
+    def forward(self, inputs: dict, backend: str = 'torch'):
+        """-> (cls, reg, obj): per-level (1, h, w, C) float32 maps;
+        ``backend`` as ``CSPDarknetDual.forward``."""
+        feats = self.backbone(inputs, backend)
+        return self.bbox_head(self.neck(feats))
+
+
+@torch.no_grad()
+def detector_predict(module: YOLOXDetector, inputs: dict,
+                     scale_factor: Tuple[float, float] = (1.0, 1.0),
+                     backend: str = 'torch') -> NMSResult:
+    """Single-image predict: forward + decode + NMS + rescale (boxes are
+    divided by ``scale_factor`` = (sf_x, sf_y))."""
+    cfg = module.cfg
+    cls, reg, obj = module(inputs, backend)
+    boxes, scores = decode_predictions(cls, reg, obj, cfg.strides)
+    fb, fs, fl = multiclass_candidates(boxes[0], scores[0], cfg.score_thr)
+    res = batched_nms(fb, fs, fl, cfg.nms_iou_thr, cfg.score_thr,
+                      cfg.pre_nms_top_k, cfg.max_per_img)
+    if tuple(scale_factor) == (1.0, 1.0):
+        return res                   # x / 1 == x: skip the host-to-device copy
+    sf = torch.tensor([scale_factor[0], scale_factor[1], scale_factor[0],
+                       scale_factor[1]], dtype=torch.float32,
+                      device=res.boxes.device)
+    return res._replace(boxes=res.boxes / sf)

@@ -1,0 +1,373 @@
+"""OC-SORT tracker with depth/scale plumbing over K fixed track slots.
+
+Port of ``stereotracking_tpu/models/tracker.py``.  The state is a
+``TrackState`` of tensors with leading dimension K, advanced by
+``step(state, dets, frame_id, cfg)``.  The algorithm and its order are the
+JAX package's: gate detections; Kalman predict on confirmed tracks; OCM
+association on confirmed tracks, then on tentative tracks; OCR on the
+leftovers; online smoothing of recovered tracks; Kalman update and
+bookkeeping; new tracks; eviction.
+
+Where the JAX package branches on device (``lax.cond`` between the init
+path and the main path, the smoothing ``while_loop``), this port branches
+on the host, which costs a device-to-host sync each; so do the three
+assignments, which solve on the host (ops/assignment.py).
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Tuple
+
+import torch
+
+from ..ops.assignment import linear_assignment_with_limit
+from ..structures.bbox import (bbox_area, bbox_cxcyah_to_xyxy,
+                               bbox_iou_matrix, bbox_xyxy_to_cxcyah)
+from . import kalman
+
+
+class TrackerConfig(NamedTuple):
+    num_slots: int = 64
+    num_dets: int = 64
+    obj_score_thr: float = 0.3
+    init_track_thr: float = 0.7
+    weight_iou_with_det_scores: bool = False
+    match_iou_thr: float = 0.1
+    num_tentatives: int = 3
+    vel_consist_weight: float = 0.2
+    vel_delta_t: int = 3
+    num_frames_retain: int = 30
+    min_det_area: float = 100.0
+
+    @property
+    def ring_size(self) -> int:
+        return self.vel_delta_t + 1
+
+
+class TrackState(NamedTuple):
+    active: torch.Tensor       # (K,) bool
+    tentative: torch.Tensor    # (K,) bool
+    tracked: torch.Tensor      # (K,) bool
+    ids: torch.Tensor          # (K,) int32
+    labels: torch.Tensor       # (K,) int32
+    mean: torch.Tensor         # (K, 8)
+    cov: torch.Tensor          # (K, 8, 8)
+    saved_mean: torch.Tensor   # (K, 8)
+    saved_cov: torch.Tensor    # (K, 8, 8)
+    last_bbox: torch.Tensor    # (K, 4)
+    scores: torch.Tensor       # (K,)
+    scales: torch.Tensor       # (K,)
+    depths: torch.Tensor       # (K,)
+    velocity: torch.Tensor     # (K, 2)
+    last_frame: torch.Tensor   # (K,) int32
+    hits: torch.Tensor         # (K,) int32
+    miss_count: torch.Tensor   # (K,) int32
+    obs_count: torch.Tensor    # (K,) int32
+    obs_ring: torch.Tensor     # (K, R, 4)
+    obs_ring_valid: torch.Tensor  # (K, R) bool
+    num_tracks: torch.Tensor   # () int32
+
+
+class Detections(NamedTuple):
+    bboxes: torch.Tensor   # (Nd, 4) xyxy, inflated
+    scores: torch.Tensor
+    labels: torch.Tensor   # int32
+    scales: torch.Tensor
+    depths: torch.Tensor
+    valid: torch.Tensor    # bool
+
+
+class TrackerOutput(NamedTuple):
+    bboxes: torch.Tensor
+    scores: torch.Tensor
+    labels: torch.Tensor
+    scales: torch.Tensor
+    depths: torch.Tensor
+    ids: torch.Tensor      # (Nd,) int32, -1 invalid
+    valid: torch.Tensor
+
+
+def init_state(cfg: TrackerConfig, device=None) -> TrackState:
+    K, R = cfg.num_slots, cfg.ring_size
+    f32, i32 = torch.float32, torch.int32
+
+    def z(*shape, dtype=f32, fill=0):
+        return torch.full(shape, fill, dtype=dtype, device=device)
+
+    return TrackState(
+        active=z(K, dtype=torch.bool), tentative=z(K, dtype=torch.bool),
+        tracked=z(K, dtype=torch.bool), ids=z(K, dtype=i32, fill=-1),
+        labels=z(K, dtype=i32), mean=z(K, 8), cov=z(K, 8, 8),
+        saved_mean=z(K, 8), saved_cov=z(K, 8, 8), last_bbox=z(K, 4),
+        scores=z(K), scales=z(K, fill=1), depths=z(K, fill=-1),
+        velocity=z(K, 2, fill=-1), last_frame=z(K, dtype=i32, fill=-1),
+        hits=z(K, dtype=i32), miss_count=z(K, dtype=i32),
+        obs_count=z(K, dtype=i32), obs_ring=z(K, R, 4),
+        obs_ring_valid=z(K, R, dtype=torch.bool),
+        num_tracks=z(dtype=i32))
+
+
+def _k_step_observation(state: TrackState, cfg: TrackerConfig,
+                        obs_count: torch.Tensor) -> torch.Tensor:
+    R = cfg.ring_size
+    pos = torch.remainder(obs_count - 1 - cfg.vel_delta_t, R).long()
+    k_obs = state.obs_ring.gather(1, pos[:, None, None].expand(-1, 1, 4))[:, 0]
+    k_valid = state.obs_ring_valid.gather(1, pos[:, None])[:, 0]
+    use_ring = (obs_count > cfg.vel_delta_t) & k_valid
+    return torch.where(use_ring[:, None], k_obs, state.last_bbox)
+
+
+def _centers(b):
+    return (b[:, :2] + b[:, 2:]) / 2.0
+
+
+def _vel_direction_batch(boxes_from, boxes_to):
+    c_from, c_to = _centers(boxes_from), _centers(boxes_to)
+    dy = c_to[None, :, 1] - c_from[:, None, 1]
+    dx = c_to[None, :, 0] - c_from[:, None, 0]
+    speed = torch.stack([dy, dx], -1)
+    norm = torch.sqrt(speed[..., 0] ** 2 + speed[..., 1] ** 2) + 1e-6
+    return speed / norm[..., None]
+
+
+def _vel_direction(box_from, box_to):
+    c1, c2 = _centers(box_from), _centers(box_to)
+    speed = torch.stack([c2[:, 1] - c1[:, 1], c2[:, 0] - c1[:, 0]], -1)
+    norm = torch.sqrt(speed[:, 0] ** 2 + speed[:, 1] ** 2) + 1e-6
+    direction = speed / norm[:, None]
+    invalid = (box_from.sum(-1) < 0) | (box_to.sum(-1) < 0)
+    return torch.where(invalid[:, None], -1.0, direction)
+
+
+def _ocm_cost(track_boxes, state: TrackState, dets: Detections,
+              cfg: TrackerConfig) -> torch.Tensor:
+    ious = bbox_iou_matrix(track_boxes, dets.bboxes)
+    if cfg.weight_iou_with_det_scores:
+        ious = ious * dets.scores[None, :]
+    cost = 1.0 - ious
+    k_obs = _k_step_observation(state, cfg, state.obs_count)
+    valid = (state.velocity.sum(-1) != -2.0) & (k_obs.sum(-1) != -4.0)
+    vel_to_match = _vel_direction_batch(k_obs, dets.bboxes)
+    angle_cos = (vel_to_match * state.velocity[:, None, :]).sum(-1)
+    angle = torch.arccos(angle_cos.clamp(-1.0, 1.0))
+    norm_angle = (angle - math.pi / 2.0) / math.pi
+    return cost + torch.where(valid[:, None], norm_angle, 0.0) * \
+        cfg.vel_consist_weight
+
+
+def _assign(cost, row_mask, col_mask, cfg: TrackerConfig):
+    return linear_assignment_with_limit(cost, row_mask, col_mask,
+                                        1.0 - cfg.match_iou_thr)
+
+
+def step(state: TrackState, dets: Detections, frame_id: int,
+         cfg: TrackerConfig) -> Tuple[TrackState, TrackerOutput]:
+    """Advance the tracker one frame (``frame_id`` a host int)."""
+    if frame_id == 0:
+        state = init_state(cfg, state.active.device)
+    flags = torch.stack([state.active.any(), dets.valid.any()]).tolist()
+    if not flags[0] or not flags[1]:            # one sync
+        return _init_path(state, dets, frame_id, cfg)
+    return _main_path(state, dets, frame_id, cfg)
+
+
+def _new_ids(state: TrackState, is_new: torch.Tensor) -> torch.Tensor:
+    ids = state.num_tracks + torch.cumsum(is_new.to(torch.int32), 0) - 1
+    return torch.where(is_new, ids, -1).to(torch.int32)
+
+
+def _count_new(state: TrackState, is_new: torch.Tensor) -> TrackState:
+    return state._replace(num_tracks=(
+        state.num_tracks + is_new.sum(dtype=torch.int32)).to(torch.int32))
+
+
+def _init_path(state, dets, frame_id, cfg):
+    is_new = dets.valid & (dets.scores > cfg.init_track_thr)
+    new_ids = _new_ids(state, is_new)
+    state = _spawn_tracks(state, dets, is_new, new_ids, frame_id, cfg)
+    state = _count_new(_evict(state, frame_id, cfg), is_new)
+    out = TrackerOutput(bboxes=dets.bboxes, scores=dets.scores,
+                        labels=dets.labels, scales=dets.scales,
+                        depths=dets.depths, ids=new_ids, valid=is_new)
+    return state, out
+
+
+def _main_path(state, dets, frame_id, cfg):
+    K, Nd = cfg.num_slots, dets.bboxes.shape[0]
+    gate = dets.valid & (dets.scores > cfg.obj_score_thr) & \
+        (bbox_area(dets.bboxes) > cfg.min_det_area)
+
+    # 1. Kalman predict on confirmed tracks
+    confirmed = state.active & ~state.tentative
+    lost = state.last_frame != frame_id - 1
+    mean = state.mean.clone()
+    mean[:, 7] = torch.where(confirmed & lost, 0.0, state.mean[:, 7])
+    save = confirmed & state.tracked
+    saved_mean = torch.where(save[:, None], mean, state.saved_mean)
+    saved_cov = torch.where(save[:, None, None], state.cov, state.saved_cov)
+    pmean, pcov = kalman.predict(mean, state.cov)
+    mean = torch.where(confirmed[:, None], pmean, mean)
+    cov = torch.where(confirmed[:, None, None], pcov, state.cov)
+    state = state._replace(mean=mean, cov=cov, saved_mean=saved_mean,
+                           saved_cov=saved_cov)
+    track_boxes = bbox_cxcyah_to_xyxy(mean[:, :4])
+
+    # 2-4. OCM on confirmed, OCM on tentative, OCR on the rest
+    cost = _ocm_cost(track_boxes, state, dets, cfg)
+    row1, col1 = _assign(cost, confirmed, gate, cfg)
+    det_matched1 = col1 >= 0
+    tentative = state.active & state.tentative
+    row2, col2 = _assign(cost, tentative, gate & ~det_matched1, cfg)
+    det_matched2 = col2 >= 0
+    ocr_rows = state.active & ~((row1 >= 0) | (row2 >= 0))
+    ocr_ious = bbox_iou_matrix(state.last_bbox, dets.bboxes)
+    if cfg.weight_iou_with_det_scores:
+        ocr_ious = ocr_ious * dets.scores[None, :]
+    row3, col3 = _assign(1.0 - ocr_ious, ocr_rows,
+                         gate & ~det_matched1 & ~det_matched2, cfg)
+
+    det_slot = torch.where(det_matched1, col1,
+                           torch.where(det_matched2, col2, col3))
+    det_matched = det_slot >= 0
+    slot_det = torch.where(row1 >= 0, row1, torch.where(row2 >= 0, row2,
+                                                        row3))
+    slot_matched = slot_det >= 0
+
+    # 5-6. online smoothing for recovered tracks
+    safe_det = slot_det.clamp(0, Nd - 1).long()
+    match_bbox = dets.bboxes[safe_det]
+    recovered = slot_matched & ~state.tracked
+    unmatch_len = torch.where(recovered, state.miss_count, 0)
+    shift = (match_bbox - state.last_bbox) / \
+        (unmatch_len[:, None].to(torch.float32) + 1.0)
+    mean = torch.where(recovered[:, None], state.saved_mean, state.mean)
+    cov = torch.where(recovered[:, None, None], state.saved_cov, state.cov)
+    max_replay = int(torch.where(recovered, unmatch_len, 0).max())  # sync
+    for i in range(max_replay):
+        virtual = state.last_bbox + float(i + 1) * shift
+        m2, c2 = kalman.update(mean, cov, bbox_xyxy_to_cxcyah(virtual))
+        apply = recovered & (i < unmatch_len)
+        mean = torch.where(apply[:, None], m2, mean)
+        cov = torch.where(apply[:, None, None], c2, cov)
+
+    # 7. Kalman update + bookkeeping for matched tracks
+    umean, ucov = kalman.update(mean, cov, bbox_xyxy_to_cxcyah(match_bbox))
+    mean = torch.where(slot_matched[:, None], umean, mean)
+    cov = torch.where(slot_matched[:, None, None], ucov, cov)
+    new_hits = torch.where(slot_matched, state.hits + 1, state.hits)
+    now_confirmed = state.tentative & slot_matched & \
+        (new_hits >= cfg.num_tentatives)
+    new_tentative = torch.where(now_confirmed, False, state.tentative)
+
+    R = cfg.ring_size
+    onehot = (torch.nn.functional.one_hot(
+        torch.remainder(state.obs_count, R).long(), R).bool()
+        & state.active[:, None])
+    obs_ring = torch.where(onehot[..., None], match_bbox[:, None, :],
+                           state.obs_ring)
+    obs_ring_valid = torch.where(onehot, slot_matched[:, None],
+                                 state.obs_ring_valid)
+    obs_count = torch.where(state.active, state.obs_count + 1,
+                            state.obs_count)
+    last_bbox = torch.where(slot_matched[:, None], match_bbox,
+                            state.last_bbox)
+    tmp = state._replace(obs_ring=obs_ring, obs_ring_valid=obs_ring_valid,
+                         last_bbox=last_bbox)
+    vel = _vel_direction(_k_step_observation(tmp, cfg, obs_count),
+                         match_bbox)
+    velocity = torch.where(slot_matched[:, None], vel, state.velocity)
+
+    state = state._replace(
+        mean=mean, cov=cov, hits=new_hits, tentative=new_tentative,
+        tracked=torch.where(state.active, slot_matched, state.tracked),
+        obs_ring=obs_ring, obs_ring_valid=obs_ring_valid,
+        obs_count=obs_count, velocity=velocity,
+        miss_count=torch.where(
+            slot_matched, 0,
+            torch.where(state.active, state.miss_count + 1,
+                        state.miss_count)).to(torch.int32),
+        last_bbox=last_bbox,
+        last_frame=torch.where(slot_matched, frame_id,
+                               state.last_frame).to(torch.int32),
+        scores=torch.where(slot_matched, dets.scores[safe_det],
+                           state.scores),
+        scales=torch.where(slot_matched, dets.scales[safe_det],
+                           state.scales),
+        depths=torch.where(slot_matched, dets.depths[safe_det],
+                           state.depths),
+        labels=torch.where(slot_matched, dets.labels[safe_det],
+                           state.labels))
+
+    # 8. new tracks for unmatched gated dets; 9. eviction
+    is_new = gate & ~det_matched
+    new_ids = _new_ids(state, is_new)
+    state = _spawn_tracks(state, dets, is_new, new_ids, frame_id, cfg)
+    state = _count_new(_evict(state, frame_id, cfg), is_new)
+
+    safe_slot = det_slot.clamp(0, K - 1).long()
+    out_ids = torch.where(det_matched, state.ids[safe_slot], new_ids)
+    out = TrackerOutput(bboxes=dets.bboxes, scores=dets.scores,
+                        labels=dets.labels, scales=dets.scales,
+                        depths=dets.depths, ids=out_ids.to(torch.int32),
+                        valid=gate)
+    return state, out
+
+
+def _scatter(target: torch.Tensor, idx: torch.Tensor, values) -> torch.Tensor:
+    """target.at[idx].set(values, mode='drop') for idx in [0, K] (K =
+    drop): written through a padded copy, so no host sync."""
+    K = target.shape[0]
+    pad = torch.cat([target, target[:1]], 0)
+    if not torch.is_tensor(values):
+        values = torch.full((idx.shape[0],) + target.shape[1:], values,
+                            dtype=target.dtype, device=target.device)
+    pad[idx.long()] = values.to(target.dtype)
+    return pad[:K]
+
+
+def _spawn_tracks(state: TrackState, dets: Detections, is_new, new_ids,
+                  frame_id: int, cfg: TrackerConfig) -> TrackState:
+    K, R = cfg.num_slots, cfg.ring_size
+    Nd = dets.bboxes.shape[0]
+    dev = dets.bboxes.device
+    free = ~state.active
+    free_order = torch.sort((~free).to(torch.int8), stable=True).indices
+    num_free = free.sum(dtype=torch.int32)
+    new_rank = torch.cumsum(is_new.to(torch.int32), 0) - 1
+    fits = is_new & (new_rank < num_free)
+    slot = torch.where(fits, free_order[new_rank.clamp(0, K - 1).long()], K)
+
+    imean, icov = kalman.initiate(bbox_xyxy_to_cxcyah(dets.bboxes))
+    ring = torch.zeros((Nd, R, 4), dtype=torch.float32, device=dev)
+    ring[:, 0] = dets.bboxes
+    ring_valid = torch.zeros((Nd, R), dtype=torch.bool, device=dev)
+    ring_valid[:, 0] = True
+    st = state
+    return st._replace(
+        active=_scatter(st.active, slot, True),
+        tentative=_scatter(st.tentative, slot, frame_id != 0),
+        tracked=_scatter(st.tracked, slot, True),
+        ids=_scatter(st.ids, slot, new_ids),
+        labels=_scatter(st.labels, slot, dets.labels),
+        mean=_scatter(st.mean, slot, imean),
+        cov=_scatter(st.cov, slot, icov),
+        saved_mean=_scatter(st.saved_mean, slot, imean),
+        saved_cov=_scatter(st.saved_cov, slot, icov),
+        last_bbox=_scatter(st.last_bbox, slot, dets.bboxes),
+        scores=_scatter(st.scores, slot, dets.scores),
+        scales=_scatter(st.scales, slot, dets.scales),
+        depths=_scatter(st.depths, slot, dets.depths),
+        velocity=_scatter(st.velocity, slot, -1.0),
+        last_frame=_scatter(st.last_frame, slot, frame_id),
+        hits=_scatter(st.hits, slot, 1),
+        miss_count=_scatter(st.miss_count, slot, 0),
+        obs_count=_scatter(st.obs_count, slot, 1),
+        obs_ring=_scatter(st.obs_ring, slot, ring),
+        obs_ring_valid=_scatter(st.obs_ring_valid, slot, ring_valid))
+
+
+def _evict(state: TrackState, frame_id: int, cfg: TrackerConfig
+           ) -> TrackState:
+    case1 = (frame_id - state.last_frame) >= cfg.num_frames_retain
+    case2 = state.tentative & (state.last_frame != frame_id)
+    return state._replace(active=state.active & ~(case1 | case2))

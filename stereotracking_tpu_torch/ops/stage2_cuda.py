@@ -1,0 +1,158 @@
+"""Fused backbone stage (entry conv + CSP chain): CUDA kernel + plain version.
+
+Replaces the Pallas kernel ``stereotracking_tpu/ops/stage2_pallas.py``
+(``stage2_fold_pallas`` / ``_stage2_kernel``, reached through
+``pallas_stage2_out``).  It computes one CSPDarknet stage: a 3x3 stride-2
+entry conv C_in -> C_out; main and short 1x1 convs C_out -> C_out/2;
+``num_blocks`` Darknet bottlenecks (1x1 and 3x3, plus the residual); the
+final 1x1 on [blocks | short].  Each ConvBNAct accumulates in float32,
+applies folded BatchNorm and SiLU in float32 and rounds to bfloat16 once;
+the residual sum rounds to bfloat16 as well.
+
+The kernel is generic over (C_in, C_out, num_blocks): the flagship's stage
+2 is (64, 128, 3), and stage 3 (128, 256, 3) can reuse it.  Input and
+output are canonical NHWC bf16: (H, W, C_in) -> (H/2, W/2, C_out).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .. import _kernels
+from ..models.layers import ConvBNAct, CSPLayer, fold_bn
+
+
+class StageWeights(NamedTuple):
+    """One stage's weights for the fused kernel: conv kernels in HWIO /
+    (in, out) layout holding bf16 values, folded BN as [scale; bias] f32."""
+    entry_w: torch.Tensor    # (3, 3, C_in, C_out)
+    entry_sb: torch.Tensor   # (2, C_out)
+    ms_w: torch.Tensor       # (C_out, 2m)     [main | short]
+    ms_sb: torch.Tensor      # (2, 2m)
+    c1_w: torch.Tensor       # (nb, m, m)
+    c1_sb: torch.Tensor      # (nb, 2, m)
+    c2_w: torch.Tensor       # (nb, 3, 3, m, m)
+    c2_sb: torch.Tensor      # (nb, 2, m)
+    fin_w: torch.Tensor      # (2m, C_out)     rows [blocks | short]
+    fin_sb: torch.Tensor     # (2, C_out)
+
+    @property
+    def dims(self):
+        """(C_in, C_out, mid, num_blocks)."""
+        return (self.entry_w.shape[2], self.entry_w.shape[3],
+                self.c1_w.shape[1], self.c1_w.shape[0])
+
+    def kernel_buffers(self):
+        """(bf16 weights, float32 scale/bias): the fields in the order the
+        kernel's ``weight_ptrs`` (csrc/csp_chain.cuh) reads them."""
+        w = torch.cat([t.reshape(-1) for t in (
+            self.entry_w, self.ms_w, self.c1_w, self.c2_w, self.fin_w)])
+        sb = torch.cat([t.reshape(-1) for t in (
+            self.entry_sb, self.ms_sb, self.c1_sb, self.c2_sb, self.fin_sb)])
+        return w.to(torch.bfloat16).contiguous(), sb.contiguous()
+
+    def check_kernel_dims(self, name: str):
+        if any(c % 16 for c in self.dims[:3]) or not 1 <= self.dims[3] <= 7:
+            raise ValueError(f'{name}: the kernel needs channel counts that '
+                             f'are multiples of 16 and 1-7 blocks, got '
+                             f'{self.dims}')
+
+
+def _bf16(w: torch.Tensor) -> torch.Tensor:
+    return w.float().to(torch.bfloat16).float()
+
+
+def _sb(m: ConvBNAct) -> torch.Tensor:
+    return torch.stack(fold_bn(m.bn)).float()
+
+
+def _w1x1(m: ConvBNAct) -> torch.Tensor:
+    return _bf16(m.conv.weight[:, :, 0, 0].t())      # (in, out)
+
+
+def stage_weights(stage: nn.Sequential) -> StageWeights:
+    """Kernel weights of a stage ``Sequential(ConvBNAct, CSPLayer)``."""
+    conv, csp = stage[0], stage[-1]
+    if not (isinstance(conv, ConvBNAct) and isinstance(csp, CSPLayer)
+            and len(stage) == 2):
+        raise ValueError('the fused stage kernel takes conv + CSP stages '
+                         '(no SPP)')
+    blocks = list(csp.blocks)
+    if not blocks or not all(b.add_identity for b in blocks):
+        raise ValueError('the fused stage kernel needs >= 1 residual block')
+    return StageWeights(
+        entry_w=_bf16(conv.hwio()), entry_sb=_sb(conv),
+        ms_w=torch.cat([_w1x1(csp.main_conv), _w1x1(csp.short_conv)], 1),
+        ms_sb=torch.cat([_sb(csp.main_conv), _sb(csp.short_conv)], 1),
+        c1_w=torch.stack([_w1x1(b.conv1) for b in blocks]),
+        c1_sb=torch.stack([_sb(b.conv1) for b in blocks]),
+        c2_w=torch.stack([_bf16(b.conv2.hwio()) for b in blocks]),
+        c2_sb=torch.stack([_sb(b.conv2) for b in blocks]),
+        fin_w=_w1x1(csp.final_conv), fin_sb=_sb(csp.final_conv))
+
+
+def _act(acc: torch.Tensor, sb: torch.Tensor) -> torch.Tensor:
+    """ConvBNAct tail on NCHW f32: folded BN, SiLU, one bf16 rounding."""
+    y = acc * sb[0][:, None, None] + sb[1][:, None, None]
+    return (y * torch.sigmoid(y)).to(torch.bfloat16).float()
+
+
+def _conv(x, w_hwio, stride=1):
+    k = w_hwio.shape[0]
+    return F.conv2d(x, w_hwio.permute(3, 2, 0, 1), stride=stride,
+                    padding=k // 2)
+
+
+def csp_chain_plain(x: torch.Tensor, wts: StageWeights) -> torch.Tensor:
+    """Plain PyTorch version of the stage on (1, C_in, H, W) bf16-valued
+    float32 -> (1, C_out, H/2, W/2) bf16-valued float32."""
+    mid = wts.dims[2]
+    z = _act(_conv(x, wts.entry_w, 2), wts.entry_sb)
+    ms = _act(_conv(z, wts.ms_w[None, None]), wts.ms_sb)
+    m, short = ms[:, :mid], ms[:, mid:]
+    for i in range(wts.c1_w.shape[0]):
+        c1 = _act(_conv(m, wts.c1_w[i][None, None]), wts.c1_sb[i])
+        c2 = _act(_conv(c1, wts.c2_w[i]), wts.c2_sb[i])
+        m = (c2 + m).to(torch.bfloat16).float()
+    return _act(_conv(torch.cat([m, short], 1), wts.fin_w[None, None]),
+                wts.fin_sb)
+
+
+def check_stage_input(name: str, x: torch.Tensor, wts: StageWeights):
+    cin = wts.dims[0]
+    if x.dim() != 3 or x.shape[2] != cin or x.dtype != torch.bfloat16:
+        raise ValueError(f'{name}: input must be (H, W, {cin}) bfloat16, '
+                         f'got {tuple(x.shape)} {x.dtype}')
+    if x.shape[0] % 2 or x.shape[1] % 2:
+        raise ValueError(f'{name}: input H and W must be even, got '
+                         f'{tuple(x.shape)}')
+
+
+def stage_csp_plain(x: torch.Tensor, wts: StageWeights) -> torch.Tensor:
+    y = csp_chain_plain(x.float().permute(2, 0, 1)[None], wts)
+    return y[0].to(torch.bfloat16).permute(1, 2, 0).contiguous()
+
+
+def stage_csp(x: torch.Tensor, wts: StageWeights) -> torch.Tensor:
+    """(H, W, C_in) bf16 -> (H/2, W/2, C_out) bf16 through the fused stage.
+
+    CPU tensors run ``stage_csp_plain``; CUDA tensors launch the kernel."""
+    check_stage_input('stage_csp', x, wts)
+    if x.device.type == 'cpu':
+        return stage_csp_plain(x, wts)
+    cin, cout, mid, nb = wts.dims
+    wts.check_kernel_dims('stage_csp')
+    w, sb = wts.kernel_buffers()
+    _kernels.require_cuda('stage_csp', x, w, sb)
+    h, wd = x.shape[:2]
+    out = torch.empty((h // 2, wd // 2, cout), dtype=torch.bfloat16,
+                      device=x.device)
+    status = _kernels.library().st_stage_csp(
+        x.data_ptr(), h, wd, cin, cout, mid, nb, w.data_ptr(), sb.data_ptr(),
+        out.data_ptr(), _kernels.stream_ptr(x))
+    _kernels.check(status, 'stage_csp')
+    _kernels.count_launch('stage2')
+    return out

@@ -1,0 +1,103 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: they need an NVIDIA GPU with nvcc and skip elsewhere.  No
+JAX here (the card's machine has none), so run them without the repo's
+conftest:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
+
+Small shapes, full flagship widths; the tolerances are chip_smoke.py's.
+"""
+import pytest
+import torch
+
+from stereotracking_tpu_torch import _kernels
+from stereotracking_tpu_torch.models.detector import (DetectorConfig,
+                                                      YOLOXDetector)
+from stereotracking_tpu_torch.models.mot import init_weights
+from stereotracking_tpu_torch.ops import (depth_cuda, stage1_cuda,
+                                          stage2_cuda, stem_cuda)
+from stereotracking_tpu_torch.ops.depth import depth_epilogue
+
+pytestmark = pytest.mark.cuda
+H, W = 96, 160
+
+
+@pytest.fixture(scope='module')
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU (CUDA kernels have no CPU mode)')
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device('cuda', 0)
+
+
+@pytest.fixture(scope='module')
+def kw(dev):
+    det = YOLOXDetector(DetectorConfig())
+    init_weights(det, torch.Generator().manual_seed(0))
+    return det.to(dev).eval().backbone.kernel_weights()
+
+
+@pytest.fixture(scope='module')
+def frames(dev):
+    g = torch.Generator().manual_seed(1)
+    img = torch.randint(0, 256, (90, 150, 3), generator=g, dtype=torch.uint8)
+    disp = torch.randint(16, 1600, (90, 150), generator=g, dtype=torch.int32)
+    disp[::4] = 65535
+    return img.to(dev), disp.to(dev).to(torch.uint16)
+
+
+def _stem_pair(frames, kw):
+    img, disp = frames
+    return [(stem_cuda.focus_stem(f, *kw[k], H, W),
+             stem_cuda.focus_stem_plain(f, *kw[k], H, W))
+            for f, k in ((img, 'stem'), (disp, 'disp_stem'))]
+
+
+def test_stem_kernel(frames, kw):
+    before = _kernels.launch_counts()['stem']
+    for k, p in _stem_pair(frames, kw):
+        p = p.float()
+        assert k.shape == p.shape == (H // 2, W // 2, 32)
+        # one bf16 ulp, plus float32 reassociation where the sum cancels
+        scale = p.abs().max()
+        assert ((k.float() - p).abs() <= 2 ** -7 * p.abs()
+                + 1e-4 * scale).all()
+    assert _kernels.launch_counts()['stem'] == before + 2
+
+
+def _stage_close(k, p):
+    assert k.shape == p.shape and k.dtype == torch.bfloat16
+    scale = float(p.float().abs().max())
+    assert float((k.float() - p.float()).abs().max()) <= 2e-2 * scale + 1e-3
+
+
+def test_stage_kernels(frames, kw):
+    (r, _), (d, _) = _stem_pair(frames, kw)
+    y1 = stage1_cuda.stage1_dual(r, d, kw['stage1'], kw['disp_stage1'])
+    _stage_close(y1, stage1_cuda.stage1_dual_plain(r, d, kw['stage1'],
+                                                   kw['disp_stage1']))
+    y2 = stage2_cuda.stage_csp(y1, kw['stage2'])
+    _stage_close(y2, stage2_cuda.stage_csp_plain(y1, kw['stage2']))
+
+
+def test_depth_kernel(dev, frames):
+    _, disp_u16 = frames
+    disp = torch.nn.functional.pad(
+        torch.where(disp_u16.to(torch.int32) == 65535, 0,
+                    disp_u16.to(torch.int32)).float() / 16.0, (0, 10, 0, 6))
+    boxes = torch.tensor([[3, 4, 40, 30], [10, 10, 150, 90], [-5, 0, 9, 9],
+                          [100, 50, 100, 70], [140, 80, 300, 200],
+                          [0, 0, 160, 96]], dtype=torch.float32, device=dev)
+    valid = torch.ones(len(boxes), dtype=torch.bool, device=dev)
+    bf = 160.0
+    scal = depth_cuda.box_scalars(boxes, 32, depth_cuda.depth_rmin(bf),
+                                  H, W)
+    ks = depth_cuda.box_depth_stats(disp, scal, 32, bf)
+    ps = depth_cuda.box_depth_stats_plain(disp, scal, 32, bf)
+    assert torch.equal(ks[:, :16], ps[:, :16])
+    assert torch.allclose(ks[:, 16:], ps[:, 16:], rtol=1e-5, atol=1e-3)
+    kd, _ = depth_epilogue(disp, boxes, valid, ks, 32, bf)
+    pd, _ = depth_epilogue(disp, boxes, valid, ps, 32, bf)
+    assert torch.allclose(kd, pd, rtol=2e-6, atol=1e-5)
