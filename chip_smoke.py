@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's flagship path once on one NVIDIA GPU.
+"""Drive the PyTorch port's paths once on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 Phases, in order; any failure exits non-zero:
 
@@ -9,20 +9,36 @@ Phases, in order; any failure exits non-zero:
    ``nvidia-smi`` name and power limit; turns TF32 off for the float32
    reference computations;
 2. build: compiles the CUDA kernels from ``stereotracking_tpu_torch/csrc``
-   (nvcc, sm_90a) and prints the build time;
+   (one nvcc per source, all at once, sm_90a) and prints the build time;
 3. kernels: each kernel against its plain PyTorch version on the same
-   inputs at the main-path shapes (1080x1920 raw frames padded to
-   1088x1920), with the tolerance stated beside each check, and both timed
-   with CUDA events;
-4. slice: ``build_model(flagship config)`` on the card, then ``track_raw``
-   over 8 synthetic 1080p frames; per frame the valid detections, valid
-   tracks and milliseconds; the kernels' launch counters must show stem 2,
-   stage 1 1, stage 2 1 and depth 2 launches per frame; every output must
-   be finite; on a small frame the kernel path's head outputs must agree
-   with the float32 module path.
+   inputs, at one stream and at 8 streams of 1080x1920 raw frames padded to
+   1088x1920, with the tolerance stated beside each check; kernel, plain
+   version and (where one PyTorch call computes the same function) that
+   call timed with CUDA events; each kernel's bound from its bytes and
+   operations; the float32 stage-3 modules (TF32 off) timed beside the
+   stage-3 kernel;
+4. reference: on a small frame the kernel path's head outputs (stage 3
+   through its kernel too) must agree with the float32 module path;
+5. slice: ``build_model(flagship config)`` on the card, ``track_raw`` over
+   6 synthetic 1080p frames; launch counts must show stem 2, stage 1 1,
+   stage 2 1 and depth 2 per frame; outputs finite; host syncs per frame;
+6. multi-stream: ``MultiStreamTracker`` with the flagship config and
+   ``stage3_backend='cuda'``, 8 steps of 8 streams (each stream its own
+   seed); ms per step and stereo pairs/s; launch counts must show stem 2,
+   stage 1 1, stage 2 1, stage 3 1 and depth 2 per step; outputs finite;
+   host syncs per step no more than the single-stream frame's; stream 0
+   over the first 3 steps equal to a single-stream run of its frames (ids
+   and validity exact, boxes within 1e-2 px);
+7. probe: the stage-1 kernel's four variants at 8 streams, each held to
+   the plain version and timed (``tools/probe_stage1_variants.py``).
+
+``--profile`` adds a ``torch.profiler`` window over two multi-stream steps
+and prints the device time by kernel.
 
 Output: the per-phase lines, then the card line and one JSON line of kernel
-results, then, as the last line, ``{"ok": true, "device": {...}}``.
+results (8-stream shapes; launches from the multi-stream run, the probe's
+from the probe run), then, as the last line, ``{"ok": true, "device":
+{...}}``.
 """
 import json
 import os
@@ -35,11 +51,16 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(REPO, 'configs', 'stereo_tracking', 'ocsort',
                       'yolox_s_airdrone_disp.py')
 FRAME_H, FRAME_W = 1080, 1920
-N_FRAMES = 8
+N_FRAMES = 6             # single-stream slice
+N_STREAMS, N_STEPS = 8, 8
+N_PARITY = 3             # multi-stream steps checked against one stream
 SEED = 0
 # head biases set so that random-weight detections clear init_track_thr and
 # the tracker spawns, matches and evicts tracks (sigmoid(3)^2 = 0.91)
 HEAD_BIAS = 3.0
+# published H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores,
+# float32 outside the tensor cores, HBM3
+PEAK_BF16, PEAK_F32, HBM_RATE = 989e12, 67e12, 3.35e12
 
 KERNELS = {
     # name: (source, TPU kernel it replaces)
@@ -49,8 +70,12 @@ KERNELS = {
                'stereotracking_tpu/ops/stage1_pallas.py:303'),
     'stage2': ('stereotracking_tpu_torch/csrc/stage2.cu',
                'stereotracking_tpu/ops/stage2_pallas.py:256'),
+    'stage3': ('stereotracking_tpu_torch/csrc/stage3.cu',
+               'stereotracking_tpu/ops/stage2_pallas.py:334'),
     'depth': ('stereotracking_tpu_torch/csrc/depth.cu',
               'stereotracking_tpu/ops/depth_pallas.py:84'),
+    'stage1_variants': ('stereotracking_tpu_torch/csrc/stage1.cu',
+                        'tools/probe_stage1_variants.py:153'),
 }
 
 
@@ -81,12 +106,30 @@ def make_frames(n, h, w, seed):
     return frames
 
 
+def to_card(frames, device):
+    """[(img, disp)] numpy -> (S, H, W, 3) uint8, (S, H, W) uint16 on the
+    card."""
+    import numpy as np
+    import torch
+    img = torch.from_numpy(np.stack([f[0] for f in frames])).to(device)
+    disp = torch.from_numpy(np.stack([f[1] for f in frames]).astype(
+        'int32')).to(device).to(torch.uint16)
+    return img, disp
+
+
+def flagship_cfg(stage3_backend=None):
+    from stereotracking_tpu_torch.config import load_config
+    cfg = load_config(CONFIG)
+    if stage3_backend is not None:
+        cfg['model']['stage3_backend'] = stage3_backend
+    return cfg
+
+
 def build_flagship(device, seed=SEED):
     """The flagship model with seeded random weights and HEAD_BIAS."""
     import torch
     from stereotracking_tpu_torch.apis.builder import build_model
-    from stereotracking_tpu_torch.config import load_config
-    model = build_model(load_config(CONFIG), device=device, seed=seed)
+    model = build_model(flagship_cfg(), device=device, seed=seed)
     head = model.module.bbox_head.head_module
     with torch.no_grad():
         for conv in (*head.multi_level_conv_cls, *head.multi_level_conv_obj):
@@ -96,17 +139,28 @@ def build_flagship(device, seed=SEED):
 
 def time_ms(fn, iters):
     """Mean milliseconds per call by CUDA events, after one warm-up."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    from stereotracking_tpu_torch.tools.probe_stage1_variants import cuda_ms
+    return cuda_ms(fn, iters)
+
+
+def bound(nbytes, ops, rate):
+    """(least ms, what bounds it): the bytes over the HBM rate or the
+    operations over the peak rate of their type, the larger."""
+    t_bytes, t_ops = nbytes / HBM_RATE * 1e3, ops / rate * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def stage_ops(k, hout, wout):
+    """FLOPs of one stage chain (entry 3x3 s2, main|short, nb
+    bottlenecks, final 1x1) over a (hout, wout) output."""
+    cin, cout, mid, nb = k.dims
+    per_px = 2 * (9 * cin * cout + cout * 2 * mid
+                  + nb * (mid * mid + 9 * mid * mid) + 2 * mid * cout)
+    return per_px * hout * wout
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
 
 
 def depth_boxes(device):
@@ -125,40 +179,50 @@ def depth_boxes(device):
     return torch.tensor(b, dtype=torch.float32, device=device)
 
 
-def check_kernels(model, frame, device):
-    """Phase 3: each kernel against its plain version on one frame."""
+def check_kernels(model, frames, device, iters=10):
+    """Phase 3 at S = len(frames) streams: each kernel against its plain
+    version, all timed; returns {name: result row}."""
     import torch
     import torch.nn.functional as F
     from stereotracking_tpu_torch.models.preprocessor import (
         padded_shape, preprocess_frame_pure)
     from stereotracking_tpu_torch.ops import (depth_cuda, stage1_cuda,
-                                              stage2_cuda, stem_cuda)
+                                              stage2_cuda, stage3_cuda,
+                                              stem_cuda)
     from stereotracking_tpu_torch.ops.depth import depth_epilogue
-    img = torch.from_numpy(frame[0]).to(device)
-    disp_u16 = torch.from_numpy(frame[1].astype('int32')).to(
-        device).to(torch.uint16)
-    oh, ow = padded_shape(*img.shape[:2])
+    n = len(frames)
+    img, disp_u16 = to_card(frames, device)
+    oh, ow = padded_shape(*img.shape[1:3])
     kw = model.module.backbone.kernel_weights()
     res = {}
 
-    def record(name, err, fn, plain, iters=20):
+    def record(name, err, fn, plain, library=None, bound_ms=None):
+        t, by = bound_ms
         res[name] = dict(max_abs_err=float(err), ms=time_ms(fn, iters),
-                         plain_ms=time_ms(plain, iters))
-        print(f'kernel {name}: max_abs_err {err:.6g}  kernel '
-              f'{res[name]["ms"]:.4f} ms  plain {res[name]["plain_ms"]:.4f}'
-              f' ms', flush=True)
+                         plain_ms=time_ms(plain, iters), bound_ms=t,
+                         bound_by=by, library_ms=(
+                             None if library is None
+                             else time_ms(library, iters)))
+        r = res[name]
+        lib = ('none' if r['library_ms'] is None
+               else f'{r["library_ms"]:.4f} ms')
+        print(f'kernel {name} x{n}: max_abs_err {err:.6g}  kernel '
+              f'{r["ms"]:.4f} ms  plain {r["plain_ms"]:.4f} ms  library '
+              f'{lib}  bound {t:.4f} ms ({by})', flush=True)
 
     # stem: the float32 sums differ by reassociation, at most
     # 2 * K * 2^-24 * sum|x * w| (K = 36 C taps, both sides), times |scale|;
     # then one bf16 rounding, at most one ulp (2^-7 relative) apart
-    stems, err = [], 0.0
+    stems, err, ops = [], 0.0, 0
+    xs = []
     for frm, (w6, sb) in ((img, kw['stem']), (disp_u16, kw['disp_stem'])):
         k = stem_cuda.focus_stem(frm, w6, sb, oh, ow)
         p = stem_cuda.focus_stem_plain(frm, w6, sb, oh, ow).float()
-        require(k.shape == (oh // 2, ow // 2, w6.shape[-1]), 'stem shape')
+        require(k.shape == (n, oh // 2, ow // 2, w6.shape[-1]), 'stem shape')
         x = F.pad(stem_cuda.stem_input(frm, oh, ow), (2, 3, 2, 3))
+        xs.append((x, w6.permute(3, 2, 0, 1).contiguous()))
         mag = F.conv2d(x.abs(), w6.abs().permute(3, 2, 0, 1), stride=2)
-        mag = mag[0].permute(1, 2, 0) * sb[0].abs()
+        mag = mag.permute(0, 2, 3, 1) * sb[0].abs()
         tol = 2 ** -7 * p.abs() + 2 * 36 * w6.shape[2] * 2 ** -24 * mag
         d = (k.float() - p).abs()
         bad = d > tol
@@ -167,19 +231,26 @@ def check_kernels(model, frame, device):
                 f'kernel {k.float()[bad][:4].tolist()} plain '
                 f'{p[bad][:4].tolist()} tol {tol[bad][:4].tolist()}')
         err = max(err, float(d.max()))
+        ops += 2 * k.numel() * 36 * w6.shape[2]
         stems.append(k)
-    record('stem',
-           err, lambda: (stem_cuda.focus_stem(img, *kw['stem'], oh, ow),
-                         stem_cuda.focus_stem(disp_u16, *kw['disp_stem'],
-                                              oh, ow)),
+    del mag, tol, d, bad, p
+    record('stem', err,
+           lambda: (stem_cuda.focus_stem(img, *kw['stem'], oh, ow),
+                    stem_cuda.focus_stem(disp_u16, *kw['disp_stem'], oh,
+                                         ow)),
            lambda: (stem_cuda.focus_stem_plain(img, *kw['stem'], oh, ow),
                     stem_cuda.focus_stem_plain(disp_u16, *kw['disp_stem'],
-                                               oh, ow)))
+                                               oh, ow)),
+           library=lambda: [F.conv2d(x, w, stride=2) for x, w in xs],
+           # the weights hold bf16 values and the inputs (0-255, bf16 of
+           # disp / 16) are exact in bf16: the tensor cores' bf16 rate
+           bound_ms=bound(nbytes(img, disp_u16, *stems), ops, PEAK_BF16))
+    del xs
 
     # stages: bf16 chains whose roundings may flip by one ulp and carry on,
     # held to 2e-2 of the output's largest magnitude (the JAX package's own
     # stage tolerance, tests/test_stage2_pallas.py)
-    def stage_check(name, fn, plain):
+    def stage_check(name, fn, plain, ins, ks):
         k, p = fn(), plain()
         require(k.shape == p.shape, f'{name} shape {k.shape} vs {p.shape}')
         err = float((k.float() - p.float()).abs().max())
@@ -187,26 +258,39 @@ def check_kernels(model, frame, device):
         require(err <= 2e-2 * scale + 1e-3,
                 f'{name}: max_abs_err {err} > 2e-2 * {scale} + 1e-3')
         require(bool(torch.isfinite(k.float()).all()), f'{name} not finite')
-        record(name, err, fn, plain)
+        ops = n * sum(stage_ops(kk, k.shape[1], k.shape[2]) for kk in ks)
+        weights = sum(nbytes(kk.w, kk.sb) for kk in ks)
+        record(name, err, fn, plain, bound_ms=bound(
+            nbytes(*ins, k) + weights, ops, PEAK_BF16))
         return k
 
+    k1, kd1 = kw['stage1'], kw['disp_stage1']
     y1 = stage_check(
-        'stage1',
-        lambda: stage1_cuda.stage1_dual(*stems, kw['stage1'],
-                                        kw['disp_stage1']),
-        lambda: stage1_cuda.stage1_dual_plain(*stems, kw['stage1'],
-                                              kw['disp_stage1']))
-    stage_check('stage2', lambda: stage2_cuda.stage_csp(y1, kw['stage2']),
-                lambda: stage2_cuda.stage_csp_plain(y1, kw['stage2']))
+        'stage1', lambda: stage1_cuda.stage1_dual(*stems, k1, kd1),
+        lambda: stage1_cuda.stage1_dual_plain(*stems, k1, kd1), stems,
+        [k1, kd1])
+    y2 = stage_check('stage2', lambda: stage2_cuda.stage_csp(y1, kw['stage2']),
+                     lambda: stage2_cuda.stage_csp_plain(y1, kw['stage2']),
+                     [y1], [kw['stage2']])
+    stage_check('stage3', lambda: stage3_cuda.stage3_csp(y2, kw['stage3']),
+                lambda: stage3_cuda.stage3_csp_plain(y2, kw['stage3']),
+                [y2], [kw['stage3']])
+    y2f = y2.float().permute(0, 3, 1, 2).contiguous()
+    with torch.no_grad():
+        mod_ms = time_ms(lambda: model.module.backbone.stage3(y2f), iters)
+    res['stage3']['module_f32_ms'] = mod_ms
+    print(f'stage 3 x{n}: kernel {res["stage3"]["ms"]:.4f} ms, float32 '
+          f'modules (model.backbone.stage3, TF32 off) {mod_ms:.4f} ms',
+          flush=True)
 
     # depth: integer statistics exact; float sums and depths within float32
     # reassociation (rtol 2e-6, atol 1e-5 on depths as in
     # tests/test_depth_pallas.py; rtol 1e-5 on the raw sums)
     cfg = model.cfg
     disp = preprocess_frame_pure(img, disp_u16, oh, ow)['disp_postp'][
-        0, :, :, 0].contiguous()
-    boxes = depth_boxes(device)
-    valid = torch.ones(boxes.shape[0], dtype=torch.bool, device=device)
+        ..., 0].contiguous()
+    boxes = depth_boxes(device)[None].repeat(n, 1, 1)
+    valid = torch.ones(boxes.shape[:2], dtype=torch.bool, device=device)
     bf = float(cfg.baseline) * float(cfg.focal_length)
     scal = depth_cuda.box_scalars(boxes, cfg.depth_crop,
                                   depth_cuda.depth_rmin(bf), oh, ow)
@@ -226,32 +310,34 @@ def check_kernels(model, frame, device):
             'depth: depths beyond rtol 2e-6')
     n_ok = int((kd > 0).sum())
     require(n_ok > 0, 'depth: no box got a depth')
+    # what these boxes need: each window pixel read once (4 B) and, per
+    # pixel, 16 bisection steps x 7 ranks of a compare and an add on the
+    # CUDA cores (their float32 rate), plus scalars in and rows out
+    px = int((scal[:, 3] * scal[:, 4]).sum())
     record('depth', float((kd - pd).abs().max()),
            lambda: depth_cuda.box_depth_stats(disp, scal, cfg.depth_crop, bf),
            lambda: depth_cuda.box_depth_stats_plain(disp, scal,
-                                                    cfg.depth_crop, bf))
-    print(f'depth: {n_ok} of {boxes.shape[0]} boxes with a depth, integer '
-          f'statistics exact', flush=True)
+                                                    cfg.depth_crop, bf),
+           bound_ms=bound(4 * px + nbytes(scal, ks), px * 16 * 7 * 2,
+                          PEAK_F32))
+    print(f'depth x{n}: {n_ok} of {boxes.shape[0] * boxes.shape[1]} boxes '
+          f'with a depth, integer statistics exact', flush=True)
     return res
 
 
 def check_small_reference(model, device):
-    """The kernel path's head outputs against the float32 module path on a
-    small frame.  The kernels round to bf16 after every ConvBNAct of the
-    stems and stages 1-2 (about 0.4% each, a dozen times) and the float32
-    layers after them carry that on; tolerance 1e-1 of each output's
-    largest magnitude."""
+    """The kernel path's head outputs, stage 3 through its kernel too,
+    against the float32 module path on a small frame.  The kernels round to
+    bf16 after every ConvBNAct of the stems and stages 1-3 (about 0.4%
+    each, a dozen times) and the float32 layers after them carry that on;
+    tolerance 1e-1 of each output's largest magnitude."""
     import torch
-    from stereotracking_tpu_torch.models.preprocessor import (
-        padded_shape, preprocess_frame_pure)
-    img, disp = make_frames(1, 256, 320, SEED + 1)[0]
-    img = torch.from_numpy(img).to(device)
-    du = torch.from_numpy(disp.astype('int32')).to(device).to(torch.uint16)
-    oh, ow = padded_shape(256, 320)
-    inputs = preprocess_frame_pure(img, du, oh, ow)
-    inputs.update(img_u8=img, disp_u16=du)
+    from stereotracking_tpu_torch.models.mot import preprocess_raw
+    from stereotracking_tpu_torch.models.preprocessor import padded_shape
+    img, du = to_card(make_frames(1, 256, 320, SEED + 1), device)
+    inputs = preprocess_raw(img, du, *padded_shape(256, 320))
     with torch.no_grad():
-        ker = model.module(inputs, 'cuda')
+        ker = model.module(inputs, 'cuda', 'cuda')
         ref = model.module(inputs, 'torch')
     worst = 0.0
     for k, r in zip(sum(ker, []), sum(ref, [])):
@@ -260,17 +346,42 @@ def check_small_reference(model, device):
         require(err <= 1e-1 * scale + 1e-3,
                 f'head output off the float32 path: {err} vs scale {scale}')
         worst = max(worst, err / max(scale, 1e-6))
-    print(f'reference: kernel-path head outputs within {worst:.4g} of the '
-          f'float32 path (relative to max |output|; limit 1e-1)', flush=True)
+    print(f'reference: kernel-path head outputs (stage 3 kernel on) within '
+          f'{worst:.4g} of the float32 path (relative to max |output|; '
+          f'limit 1e-1)', flush=True)
+
+
+def count_syncs(fn):
+    """Host syncs of one call of ``fn``, as torch's sync debug mode reports
+    them (it does not see every synchronizing call)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('warn')
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    return sum('synchroniz' in str(w.message).lower() for w in caught)
+
+
+def check_result(r, lead, num_dets, what):
+    import torch
+    for name, t in r._asdict().items():
+        require(bool(torch.isfinite(t.float()).all()),
+                f'{what}: {name} not finite')
+    require(r.det_bboxes.shape == lead + (300, 4), f'{what}: det slots')
+    require(r.track_ids.shape == lead + (num_dets,), f'{what}: track slots')
 
 
 def run_slice(model, frames, device):
-    """Phase 4: the flagship slice over the frames, counters checked."""
+    """Phase 5: the single-stream flagship slice, counters checked."""
     import torch
     from stereotracking_tpu_torch import _kernels
-    dev_frames = [(torch.from_numpy(i).to(device),
-                   torch.from_numpy(d.astype('int32')).to(device).to(
-                       torch.uint16)) for i, d in frames]
+    dev_frames = [to_card([f], device) for f in frames]
+    dev_frames = [(i[0], d[0]) for i, d in dev_frames]
     model.reset()
     torch.cuda.synchronize()
     _kernels.reset_launch_counts()
@@ -284,34 +395,19 @@ def run_slice(model, frames, device):
     counts = _kernels.launch_counts()
     n_ids = set()
     for f, (r, ms) in enumerate(zip(results, per_frame)):
-        for name, t in r._asdict().items():
-            require(bool(torch.isfinite(t.float()).all()),
-                    f'frame {f}: {name} not finite')
-        require(r.det_bboxes.shape == (300, 4), 'det slots')
-        require(r.track_ids.shape == (model.cfg.tracker.num_dets,),
-                'track slots')
+        check_result(r, (), model.cfg.tracker.num_dets, f'frame {f}')
         ids = r.track_ids[r.track_valid].tolist()
         n_ids.update(i for i in ids if i >= 0)
         print(f'frame {f}: {int(r.det_valid.sum())} valid detections, '
               f'{int(r.track_valid.sum())} valid tracks, {ms:.2f} ms',
               flush=True)
-    want = {'stem': 2, 'stage1': 1, 'stage2': 1, 'depth': 2}
+    want = {'stem': 2, 'stage1': 1, 'stage2': 1, 'stage3': 0, 'depth': 2}
     for name, per in want.items():
         require(counts[name] == per * len(frames),
                 f'{name}: {counts[name]} launches over {len(frames)} frames,'
                 f' expected {per} per frame')
     require(len(n_ids) > 0, 'no track id assigned')
-    # host syncs of one more (untimed) frame, as torch's sync debug mode
-    # reports them (it does not see every synchronizing call)
-    torch.cuda.set_sync_debug_mode('warn')
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter('always')
-            model.track_raw(*dev_frames[0], len(frames))
-            torch.cuda.synchronize()
-    finally:
-        torch.cuda.set_sync_debug_mode('default')
-    syncs = sum('synchroniz' in str(w.message).lower() for w in caught)
+    syncs = count_syncs(lambda: model.track_raw(*dev_frames[0], len(frames)))
     print(f'host syncs in one frame (torch sync debug mode): {syncs}',
           flush=True)
     steady = sorted(per_frame[2:])        # after cuDNN's first-call setup
@@ -319,7 +415,120 @@ def run_slice(model, frames, device):
           f'{len(n_ids)} track ids, launches {counts}, ms/frame first two '
           f'{per_frame[0]:.2f} {per_frame[1]:.2f}, frames 2-{len(frames) - 1}'
           f' median {steady[len(steady) // 2]:.2f}', flush=True)
-    return counts
+    return counts, syncs
+
+
+def run_multistream(model, device, single_syncs, profile=False):
+    """Phase 6: MultiStreamTracker, 8 streams x 8 steps, stage-3 kernel on."""
+    import numpy as np
+    import torch
+    from stereotracking_tpu_torch import _kernels
+    from stereotracking_tpu_torch.apis.builder import build_mot_config
+    from stereotracking_tpu_torch.models.mot import OCSORTDisparity
+    from stereotracking_tpu_torch.parallel.multistream import \
+        MultiStreamTracker
+    mot = build_mot_config(flagship_cfg('cuda')['model'], device)
+    require(mot.backbone_backend == 'cuda' and mot.stage3_backend == 'cuda',
+            f'multi-stream config: {mot.backbone_backend}, '
+            f'{mot.stage3_backend}')
+    ms = MultiStreamTracker(mot, N_STREAMS, module=model.module,
+                            device=device)
+    streams = [make_frames(N_STEPS, FRAME_H, FRAME_W, 100 + s)
+               for s in range(N_STREAMS)]
+    steps = [to_card([streams[s][t] for s in range(N_STREAMS)], device)
+             for t in range(N_STEPS)]
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    per_step, results = [], []
+    for t, (imgs, disps) in enumerate(steps):
+        t0 = time.perf_counter()
+        r = ms.track_raw(imgs, disps, [t] * N_STREAMS)
+        torch.cuda.synchronize()
+        per_step.append((time.perf_counter() - t0) * 1e3)
+        results.append(r)
+    counts = _kernels.launch_counts()
+    want = {'stem': 2, 'stage1': 1, 'stage2': 1, 'stage3': 1, 'depth': 2}
+    for name, per in want.items():
+        require(counts[name] == per * N_STEPS,
+                f'multi-stream {name}: {counts[name]} launches over '
+                f'{N_STEPS} steps, expected {per} per step')
+    n_ids = set()
+    for t, r in enumerate(results):
+        check_result(r, (N_STREAMS,), mot.tracker.num_dets, f'step {t}')
+        n_ids.update(r.track_ids[r.track_valid].tolist())
+        print(f'step {t}: {int(r.det_valid.sum())} valid detections, '
+              f'{int(r.track_valid.sum())} valid tracks over {N_STREAMS} '
+              f'streams, {per_step[t]:.2f} ms', flush=True)
+    require(len(n_ids - {-1}) > 0, 'multi-stream: no track id assigned')
+    syncs = count_syncs(lambda: ms.track_raw(*steps[0], [N_STEPS] * N_STREAMS))
+    steady = sorted(per_step[2:])
+    med = steady[len(steady) // 2]
+    print(f'multi-stream: {N_STREAMS} streams x {N_STEPS} steps of '
+          f'{FRAME_H}x{FRAME_W}, launches {counts}, ms/step first two '
+          f'{per_step[0]:.2f} {per_step[1]:.2f}, steps 2-{N_STEPS - 1} '
+          f'median {med:.2f} ({N_STREAMS / med * 1e3:.1f} stereo pairs/s), '
+          f'host syncs per step {syncs} (single stream {single_syncs})',
+          flush=True)
+    require(syncs <= single_syncs,
+            f'multi-stream: {syncs} host syncs per step > {single_syncs} of '
+            f'the single-stream frame')
+
+    one = OCSORTDisparity(mot, module=model.module, device=device)
+    for t in range(N_PARITY):
+        r1 = one.track_raw(steps[t][0][0], steps[t][1][0], t)
+        rb = results[t]
+        for name in ('track_ids', 'track_valid', 'det_valid'):
+            require(torch.equal(getattr(rb, name)[0], getattr(r1, name)),
+                    f'step {t}: stream 0 {name} differs from its '
+                    f'single-stream run')
+        # boxes of the tracked slots: the detector's float32 layers sum in
+        # another order at another batch size, which may swap near-tied
+        # detections deep in the 300 NMS slots, never among the tracked
+        err = float((rb.track_bboxes[0] - r1.track_bboxes).abs().max())
+        require(err <= 1e-2, f'step {t}: stream 0 track_bboxes off its '
+                f'single-stream run by {err} px')
+    print(f'multi-stream: stream 0 equals its single-stream run over '
+          f'{N_PARITY} steps (ids and validity exact, boxes within 1e-2 px)',
+          flush=True)
+    if profile:
+        profile_steps(ms, steps)
+    return counts, dict(ms_per_step=med, pairs_per_s=N_STREAMS / med * 1e3,
+                        syncs_per_step=syncs)
+
+
+def profile_steps(ms, steps):
+    """Device time by kernel over two multi-stream steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for t in range(2):
+            ms.track_raw(*steps[t], [N_STEPS + 1 + t] * N_STREAMS)
+        torch.cuda.synchronize()
+    rows = [(getattr(e, 'device_time_total', 0) or
+             getattr(e, 'cuda_time_total', 0), e.count, e.key)
+            for e in prof.key_averages()]
+    rows = sorted((r for r in rows if r[0] > 0), reverse=True)
+    total = sum(r[0] for r in rows if not r[2].startswith('aten::'))
+    print(f'profile: device time over 2 steps by kernel (us); kernel sum '
+          f'{total:.0f} us', flush=True)
+    for us, cnt, key in rows[:25]:
+        print(f'profile: {us:12.1f} us {cnt:6d}x {key[:90]}', flush=True)
+
+
+def run_probe():
+    """Phase 7: the stage-1 kernel's variants at 8 streams."""
+    from stereotracking_tpu_torch import _kernels
+    from stereotracking_tpu_torch.ops.stage1_cuda import PRODUCTION
+    from stereotracking_tpu_torch.tools.probe_stage1_variants import \
+        run_probe as probe
+    _kernels.reset_launch_counts()
+    out = probe(N_STREAMS, FRAME_H, FRAME_W, SEED)
+    launches = _kernels.launch_counts()['stage1_variants']
+    print('probe: ' + json.dumps({k: out[k] for k in sorted(out)}),
+          flush=True)
+    require(launches > 0, 'probe: no variant launched')
+    return launches, out, PRODUCTION
 
 
 def main():
@@ -333,6 +542,7 @@ def main():
                            'this script')
     sys.path.insert(0, REPO)
     from stereotracking_tpu_torch import _kernels
+    t_start = time.perf_counter()
     device = torch.device('cuda', 0)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -340,7 +550,7 @@ def main():
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader', '--id=0'],
         capture_output=True, text=True, check=True).stdout.strip()
-    print(f'device: {torch.cuda.get_device_name(0)}; torch '
+    print(f'device: {torch.cuda.get_device_name(0)}; {card}; torch '
           f'{torch.__version__}, CUDA {torch.version.cuda}', flush=True)
 
     t0 = time.perf_counter()
@@ -349,11 +559,24 @@ def main():
     print(f'build: {path.name} in {time.perf_counter() - t0:.1f} s '
           f'(nvcc {_kernels.build_seconds})', flush=True)
 
-    frames = make_frames(N_FRAMES, FRAME_H, FRAME_W, SEED)
     model = build_flagship(device)
-    res = check_kernels(model, frames[0], device)
+    streams = [make_frames(1, FRAME_H, FRAME_W, 100 + s)[0]
+               for s in range(N_STREAMS)]
+    check_kernels(model, streams[:1], device)
+    res = check_kernels(model, streams, device)
     check_small_reference(model, device)
-    counts = run_slice(model, frames, device)
+    _, single_syncs = run_slice(
+        model, make_frames(N_FRAMES, FRAME_H, FRAME_W, SEED), device)
+    counts, _ = run_multistream(model, device, single_syncs,
+                                profile='--profile' in sys.argv[1:])
+    probe_launches, probe, prod = run_probe()
+    counts['stage1_variants'] = probe_launches
+    res['stage1_variants'] = dict(
+        max_abs_err=max(v for k, v in probe.items() if k.endswith('_maxerr')),
+        ms=probe[f'{prod}_ms'], plain_ms=res['stage1']['plain_ms'],
+        bound_ms=res['stage1']['bound_ms'],
+        bound_by=res['stage1']['bound_by'], library_ms=None)
+    print(f'smoke: {time.perf_counter() - t_start:.1f} s in all', flush=True)
 
     kernels = [dict(name=name, route='cuda', source=src, replaces=rep,
                     launches=counts[name], **res[name])

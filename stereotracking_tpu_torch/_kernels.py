@@ -1,10 +1,11 @@
 """Build, load and count the hand-written CUDA kernels.
 
-All ``csrc/*.cu`` sources compile with ``nvcc`` into ONE shared library with
-a plain C interface, loaded through ``ctypes``.  The build runs at first use
-and again whenever a source or a flag changes (the library's file name
-carries a hash of both), into ``_build/`` beside this file.  Nothing is
-built or loaded when this module is imported.
+All ``csrc/*.cu`` sources compile with ``nvcc`` (one process per source,
+all started together) and link into ONE shared library with a plain C
+interface, loaded through ``ctypes``.  The build runs at first use and again
+whenever a source or a flag changes (the library's file name carries a hash
+of both), into ``_build/`` beside this file.  Nothing is built or loaded
+when this module is imported.
 
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``check`` raises on a non-zero status.  Each Python
@@ -25,8 +26,9 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parent / '_build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-O3',
-              '-std=c++17', '-shared', '-Xcompiler', '-fPIC')
-KERNELS = ('stem', 'stage1', 'stage2', 'depth')
+              '-std=c++17', '-Xcompiler', '-fPIC')
+KERNELS = ('stem', 'stage1', 'stage2', 'stage3', 'depth',
+           'stage1_variants')
 
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 _lib = None
@@ -37,15 +39,17 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures: every entry returns the cudaError_t of its launch as int
 _SIGNATURES = {
-    # frame, is_disp, h, w, out_h, out_w, cout, weight, sb, out, stream
-    'st_focus_stem': (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
-    # x_rgb, x_disp, h, w, cin, cout, mid, nb, w_rgb, sb_rgb, w_disp,
-    # sb_disp, out, stream
-    'st_stage1_dual': (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-                       _P),
-    # x, h, w, cin, cout, mid, nb, weights, sb, out, stream
-    'st_stage_csp': (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
-    # disp, h, w, scal, nbox, crop, bf, out, stream
+    # frame, is_disp, n, h, w, out_h, out_w, cout, weight, sb, out, stream
+    'st_focus_stem': (_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    # x_rgb, x_disp, n, h, w, cin, cout, mid, nb, w_rgb, sb_rgb, w_disp,
+    # sb_disp, out, variant, stream
+    'st_stage1_dual': (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                       _P, _I, _P),
+    # x, n, h, w, cin, cout, mid, nb, weights, sb, out, stream
+    'st_stage_csp': (_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    # x, n, h, w, cin, cout, mid, nb, weights, sb, ms scratch, out, stream
+    'st_stage3': (_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    # disp (n maps), h, w, scal, nbox, crop, bf, out, stream
     'st_box_depth_stats': (_P, _I, _I, _P, _I, _I, _F, _P, _P),
 }
 
@@ -98,13 +102,31 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
-    tmp = out.with_suffix(f'.{os.getpid()}.tmp')
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), *map(str, cu)]
+    tag = f'{out.stem}.{os.getpid()}'
+    objs = [BUILD_DIR / f'{tag}.{p.stem}.o' for p in cu]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f'nvcc failed ({res.returncode}):\n'
-                           f'{" ".join(cmd)}\n{res.stdout}\n{res.stderr}')
+    cmds = [[_nvcc(), *NVCC_FLAGS, '-c', '-o', str(o), str(p)]
+            for p, o in zip(cu, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    tmp = out.with_suffix(f'.{os.getpid()}.tmp')
+    link = [_nvcc(), '-shared', *NVCC_FLAGS[:2], '-o', str(tmp),
+            *map(str, objs)]
+    try:
+        for cmd, proc, log in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
+                                   f'{" ".join(cmd)}\n{log}')
+        res = subprocess.run(link, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f'nvcc link failed ({res.returncode}):\n'
+                               f'{" ".join(link)}\n{res.stdout}\n'
+                               f'{res.stderr}')
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     os.replace(tmp, out)
     build_seconds = time.perf_counter() - t0
     return out

@@ -6,9 +6,11 @@ when the model lives on a CUDA device and the float32 modules elsewhere;
 ``'cuda'`` / ``'torch'`` force one (``'pallas'`` / ``'xla'`` from JAX
 configs mean the same).  ``stem_backend``, ``stage1_backend`` and
 ``stage2_backend`` must resolve alike: the three kernels run together
-(``MOTConfig.backbone_backend``).  Stage 3 has no kernel yet:
-``stage3_backend`` accepts only ``'auto'`` / ``'xla'`` / ``'torch'``.
-``pack_backend`` has no meaning here and is ignored.
+(``MOTConfig.backbone_backend``).  ``stage3_backend`` resolves as the JAX
+package's ``_resolve_stage_backends`` does: ``'auto'`` is the float32
+modules everywhere, and an explicit ``'cuda'`` needs the stage-2 kernel.
+``pack_backend`` has no meaning here and is ignored.  Everything runs on
+the card unless ``device`` says otherwise.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 from ..models.detector import DetectorConfig, YOLOXDetector
 from ..models.mot import MOTConfig, OCSORTDisparity
 from ..models.tracker import TrackerConfig
+from ..utils.devices import checked_device
 
 _BACKBONE_KINDS = {
     'YOLOXCSPDarknet_Disparity_V1_MMYOLO': 'dual',
@@ -84,15 +87,30 @@ def _backbone_backend(model_cfg: Dict[str, Any], device) -> str:
     return vals.pop()
 
 
-def build_mot_config(model_cfg: Dict[str, Any], device='cpu') -> MOTConfig:
+def _stage3_backend(model_cfg: Dict[str, Any], backbone: str) -> str:
+    """'auto' -> 'torch' (the JAX builder resolves it to XLA everywhere);
+    'cuda' only on top of the stage-2 kernel."""
+    val = _ALIASES.get(model_cfg.get('stage3_backend', 'auto'),
+                       model_cfg.get('stage3_backend', 'auto'))
+    if val == 'auto':
+        return 'torch'
+    if val not in ('torch', 'cuda'):
+        raise ValueError(f'unknown stage3_backend {val!r}')
+    if val == 'cuda' and backbone != 'cuda':
+        raise ValueError("stage3_backend='cuda' requires the stage-2 kernel "
+                         "(stage2_backend='cuda'): it consumes its bf16 "
+                         f"activations; got {backbone!r}")
+    return val
+
+
+def build_mot_config(model_cfg: Dict[str, Any], device='cuda') -> MOTConfig:
     kind = _strip(model_cfg.get('type', 'OCSORT_Disparity'))
     if kind not in ('OCSORT_Disparity', 'OCSORT'):
         raise ValueError(f'unsupported model type {kind!r}')
     if model_cfg.get('cmc'):
         raise NotImplementedError('camera-motion compensation is not ported')
-    if _ALIASES.get(model_cfg.get('stage3_backend', 'auto'),
-                    model_cfg.get('stage3_backend', 'auto')) == 'cuda':
-        raise NotImplementedError('the stage-3 kernel is not ported')
+    device = checked_device(device)
+    backbone = _backbone_backend(model_cfg, device)
     depth = _ALIASES.get(model_cfg.get('depth_backend', 'auto'),
                          model_cfg.get('depth_backend', 'auto'))
     if depth not in ('auto', 'cuda', 'torch'):
@@ -106,14 +124,17 @@ def build_mot_config(model_cfg: Dict[str, Any], device='cpu') -> MOTConfig:
         depth_mode=model_cfg.get('depth_mode', 'corner_guided'),
         reuse_det_depth=model_cfg.get('reuse_det_depth', True),
         disp_fixed_point=model_cfg.get('disp_fixed_point', True),
-        backbone_backend=_backbone_backend(model_cfg, device))
+        backbone_backend=backbone,
+        stage3_backend=_stage3_backend(model_cfg, backbone))
 
 
-def build_model(cfg: Dict[str, Any], device='cpu',
+def build_model(cfg: Dict[str, Any], device='cuda',
                 module: Optional[YOLOXDetector] = None,
                 seed: int = 0) -> OCSORTDisparity:
-    """cfg: a full config dict with a 'model' entry.  Without ``module``
-    the detector gets seeded random weights (``models.mot.init_weights``).
+    """cfg: a full config dict with a 'model' entry; the model lives on
+    ``device`` (the card unless the caller asks for the CPU).  Without
+    ``module`` the detector gets seeded random weights
+    (``models.mot.init_weights``).
     The per-box depth statistics run through the depth kernel wrapper
     whatever ``depth_backend`` says: CUDA tensors launch the kernel."""
     mot = build_mot_config(cfg['model'], device)

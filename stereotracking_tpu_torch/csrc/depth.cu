@@ -3,7 +3,8 @@
 // Replaces: stereotracking_tpu/ops/depth_pallas.py, _stats_pallas /
 // _kernel_impl (reached through extract_box_depths_disp_pallas).
 //
-// What it computes, for each box (one block per box): the crop x crop
+// What it computes, for each box (one block per box, the boxes of all S
+// streams in one launch; each box names its stream's map): the crop x crop
 // window of the disparity map at pyramid level l (stride 2^l in rows and
 // columns), as integer raw values round(disp * 16), masked to the box, the
 // frame and raw >= rmin (the integer form of 0 < depth < 150); n = number
@@ -71,6 +72,7 @@ box_depth_stats_kernel(const float* __restrict__ disp, int h, int w,
   const int* s = scal + blockIdx.x * 8;
   const int y0 = s[1], x0 = s[2], nr = s[3], nc = s[4], stride = s[5],
             rmin = s[6];
+  disp += (size_t)s[7] * h * w;
   const int tid = threadIdx.x, npix = crop * crop;
 
   int cnt[8] = {0, 0, 0, 0, 0, 0, 0, 0};
@@ -182,9 +184,10 @@ box_depth_stats_kernel(const float* __restrict__ disp, int h, int w,
 
 }  // namespace
 
-// disp: (h, w) float32; scal: (nbox, 8) int32 per box
-// [level, y0, x0, nrows, ncols, stride, rmin, 0] with (y0, x0) the window
-// origin in level coordinates; out: (nbox, 24) float32.
+// disp: (n, h, w) float32; scal: (nbox, 8) int32 per box
+// [level, y0, x0, nrows, ncols, stride, rmin, stream] with (y0, x0) the
+// window origin in level coordinates and stream < n; out: (nbox, 24)
+// float32.
 ST_EXPORT int st_box_depth_stats(const void* disp, int h, int w,
                                  const void* scal, int nbox, int crop,
                                  float bf, void* out, void* stream) {

@@ -3,7 +3,8 @@
 // Replaces: stereotracking_tpu/ops/stem_pallas.py, focus_stem_pallas /
 // _stem_kernel (reached through pallas_stem_outputs).
 //
-// What it computes: out[oy, ox, o] = bf16(SiLU(scale[o] * acc + bias[o])),
+// What it computes, for each of S frames (one launch, grid z = frame):
+// out[oy, ox, o] = bf16(SiLU(scale[o] * acc + bias[o])),
 // acc = sum over the 6x6 taps (uy, ux) and input channels c of
 // x[2*oy + uy - 2, 2*ox + ux - 2, c] * w[uy, ux, c, o], where x is the
 // preprocessed frame zero-padded to (out_h, out_w) and by (2, 3) around:
@@ -38,6 +39,8 @@ focus_stem_kernel(const void* __restrict__ frame, int h, int w, int hout,
   __shared__ float wsm[36 * C * O];
   const int tid = threadIdx.x;
   const int oy0 = blockIdx.y * TH, ox0 = blockIdx.x * TW;
+  const size_t frame_px = (size_t)blockIdx.z * h * w;
+  out += (size_t)blockIdx.z * hout * wout * O;
   const int y0 = 2 * oy0 - 2, x0 = 2 * ox0 - 2;
 
   for (int i = tid; i < PH * PW * C; i += TH * TW) {
@@ -46,14 +49,14 @@ focus_stem_kernel(const void* __restrict__ frame, int h, int w, int hout,
     float v = 0.0f;
     if (y >= 0 && y < h && x >= 0 && x < w) {
       if (C == 1) {
-        const unsigned r =
-            static_cast<const uint16_t*>(frame)[(size_t)y * w + x];
+        const unsigned r = static_cast<const uint16_t*>(
+            frame)[frame_px + (size_t)y * w + x];
         v = r == 65535u ? 0.0f
                         : __bfloat162float(__float2bfloat16_rn(
                               __fdiv_rn(static_cast<float>(r), 16.0f)));
       } else {
-        v = static_cast<float>(
-            static_cast<const uint8_t*>(frame)[((size_t)y * w + x) * C + c]);
+        v = static_cast<float>(static_cast<const uint8_t*>(
+            frame)[(frame_px + (size_t)y * w + x) * C + c]);
       }
     }
     patch[i] = v;
@@ -86,10 +89,10 @@ focus_stem_kernel(const void* __restrict__ frame, int h, int w, int hout,
 }
 
 template <int C>
-cudaError_t launch_c(const void* frame, int h, int w, int hout, int wout,
-                     int cout, const float* weight, const float* sb,
+cudaError_t launch_c(const void* frame, int n, int h, int w, int hout,
+                     int wout, int cout, const float* weight, const float* sb,
                      bf16* out, cudaStream_t stream) {
-  dim3 grid((wout + TW - 1) / TW, (hout + TH - 1) / TH);
+  dim3 grid((wout + TW - 1) / TW, (hout + TH - 1) / TH, n);
   switch (cout) {
     case 8:
       focus_stem_kernel<C, 8><<<grid, TH * TW, 0, stream>>>(
@@ -115,17 +118,19 @@ cudaError_t launch_c(const void* frame, int h, int w, int hout, int wout,
 
 }  // namespace
 
-// frame: (h, w, 3) uint8 or (h, w) uint16; out: (out_h/2, out_w/2, cout)
-ST_EXPORT int st_focus_stem(const void* frame, int is_disp, int h, int w,
-                            int out_h, int out_w, int cout,
+// frame: (n, h, w, 3) uint8 or (n, h, w) uint16; out: (n, out_h/2,
+// out_w/2, cout)
+ST_EXPORT int st_focus_stem(const void* frame, int is_disp, int n, int h,
+                            int w, int out_h, int out_w, int cout,
                             const void* weight, const void* sb, void* out,
                             void* stream) {
+  if (n < 1) return cudaErrorInvalidValue;
   const int hout = out_h / 2, wout = out_w / 2;
   const float* wt = static_cast<const float*>(weight);
   const float* s = static_cast<const float*>(sb);
   bf16* o = static_cast<bf16*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_disp)
-    return launch_c<1>(frame, h, w, hout, wout, cout, wt, s, o, st);
-  return launch_c<3>(frame, h, w, hout, wout, cout, wt, s, o, st);
+    return launch_c<1>(frame, n, h, w, hout, wout, cout, wt, s, o, st);
+  return launch_c<3>(frame, n, h, w, hout, wout, cout, wt, s, o, st);
 }

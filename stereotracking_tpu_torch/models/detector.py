@@ -45,23 +45,26 @@ class YOLOXDetector(nn.Module):
                                    widen_factor=cfg.widen_factor,
                                    strides=cfg.strides)
 
-    def forward(self, inputs: dict, backend: str = 'torch'):
-        """-> (cls, reg, obj): per-level (1, h, w, C) float32 maps;
-        ``backend`` as ``CSPDarknetDual.forward``."""
-        feats = self.backbone(inputs, backend)
+    def forward(self, inputs: dict, backend: str = 'torch',
+                stage3_backend: str = 'torch'):
+        """-> (cls, reg, obj): per-level (S, h, w, C) float32 maps;
+        backends as ``CSPDarknetDual.forward``."""
+        feats = self.backbone(inputs, backend, stage3_backend)
         return self.bbox_head(self.neck(feats))
 
 
 @torch.no_grad()
 def detector_predict(module: YOLOXDetector, inputs: dict,
                      scale_factor: Tuple[float, float] = (1.0, 1.0),
-                     backend: str = 'torch') -> NMSResult:
-    """Single-image predict: forward + decode + NMS + rescale (boxes are
-    divided by ``scale_factor`` = (sf_x, sf_y))."""
+                     backend: str = 'torch', stage3_backend: str = 'torch'
+                     ) -> NMSResult:
+    """Predict for the S frames of ``inputs``: forward + decode + NMS +
+    rescale (boxes are divided by ``scale_factor`` = (sf_x, sf_y)), each
+    NMSResult field with a leading S."""
     cfg = module.cfg
-    cls, reg, obj = module(inputs, backend)
+    cls, reg, obj = module(inputs, backend, stage3_backend)
     boxes, scores = decode_predictions(cls, reg, obj, cfg.strides)
-    fb, fs, fl = multiclass_candidates(boxes[0], scores[0], cfg.score_thr)
+    fb, fs, fl = multiclass_candidates(boxes, scores, cfg.score_thr)
     res = batched_nms(fb, fs, fl, cfg.nms_iou_thr, cfg.score_thr,
                       cfg.pre_nms_top_k, cfg.max_per_img)
     if tuple(scale_factor) == (1.0, 1.0):

@@ -7,10 +7,14 @@ detector (stems, stage 1, stage 2, the rest); decode and NMS; depth of the
 first ``num_dets`` detections; depth^2 box inflation; tracker step; box
 un-inflation; depth re-extracted on the un-inflated boxes (unless
 ``reuse_det_depth``).  Camera-motion compensation is not ported.
+
+``predict_frames_batched`` advances S streams one frame each in one pass
+(every kernel launched once for all S); ``predict_frame`` is its one-stream
+case.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -18,6 +22,7 @@ import torch
 from ..ops.depth import (disp_to_depth, extract_box_depths,
                          extract_box_depths_disp)
 from ..structures.bbox import scale_bbox
+from ..utils.devices import checked_device
 from . import tracker as trk
 from .detector import DetectorConfig, YOLOXDetector, detector_predict
 from .preprocessor import padded_shape, preprocess_frame_pure
@@ -34,6 +39,8 @@ class MOTConfig(NamedTuple):
     disp_fixed_point: bool = True
     backbone_backend: str = 'torch'  # 'torch' (float32 modules) | 'cuda'
                                      # (the stem, stage-1, stage-2 kernels)
+    stage3_backend: str = 'torch'    # 'cuda': stage 3 through its kernel
+                                     # too (needs backbone_backend 'cuda')
 
 
 class FrameResult(NamedTuple):
@@ -52,16 +59,22 @@ class FrameResult(NamedTuple):
 
 
 @torch.no_grad()
-def predict_frame(module: YOLOXDetector, state: trk.TrackState,
-                  inputs: dict, frame_id: int, cfg: MOTConfig,
-                  scale_factor: Tuple[float, float] = (1.0, 1.0),
-                  ) -> Tuple[trk.TrackState, FrameResult]:
-    """Advance one frame from preprocessed inputs (see
-    ``preprocess_frame_pure``; raw 'img_u8' / 'disp_u16' as well when the
-    stems run as kernels)."""
+def predict_frames_batched(module: YOLOXDetector, states: trk.TrackState,
+                           inputs: dict, frame_ids: Sequence[int],
+                           cfg: MOTConfig,
+                           scale_factor: Tuple[float, float] = (1.0, 1.0),
+                           ) -> Tuple[trk.TrackState, FrameResult]:
+    """Advance S streams one frame each.
+
+    ``states``: a ``TrackState`` with a leading stream axis; ``inputs``:
+    dict of (S, H, W, C) tensors from ``preprocess_frame_pure`` (and the
+    raw (S, h, w, 3) 'img_u8' / (S, h, w) 'disp_u16' when the stems run as
+    kernels); ``frame_ids``: S host ints.  Every FrameResult field has a
+    leading S."""
     det = detector_predict(module, inputs, scale_factor,
-                           backend=cfg.backbone_backend)
-    disp = inputs['disp_postp'][0, :, :, 0]
+                           backend=cfg.backbone_backend,
+                           stage3_backend=cfg.stage3_backend)
+    disp = inputs['disp_postp'][..., 0]
     if cfg.depth_mode == 'corner_guided' and cfg.disp_fixed_point:
         disp = disp.contiguous()
 
@@ -76,12 +89,12 @@ def predict_frame(module: YOLOXDetector, state: trk.TrackState,
                                       cfg.depth_mode)
 
     nd = cfg.tracker.num_dets
-    d_vals, scales = extract(det.boxes[:nd], det.valid[:nd])
+    d_vals, scales = extract(det.boxes[:, :nd], det.valid[:, :nd])
     dets = trk.Detections(
-        bboxes=scale_bbox(det.boxes[:nd], scales), scores=det.scores[:nd],
-        labels=det.labels[:nd], scales=scales, depths=d_vals,
-        valid=det.valid[:nd])
-    state, out = trk.step(state, dets, frame_id, cfg.tracker)
+        bboxes=scale_bbox(det.boxes[:, :nd], scales),
+        scores=det.scores[:, :nd], labels=det.labels[:, :nd], scales=scales,
+        depths=d_vals, valid=det.valid[:, :nd])
+    states, out = trk.step(states, dets, frame_ids, cfg.tracker)
 
     unscaled = scale_bbox(out.bboxes, 1.0 / out.scales)
     if cfg.reuse_det_depth:
@@ -90,17 +103,44 @@ def predict_frame(module: YOLOXDetector, state: trk.TrackState,
         track_depths, _ = extract(unscaled, out.valid)
     if 'depth_postp' in inputs:
         gt_depths, _ = extract_box_depths(
-            inputs['depth_postp'][0, :, :, 0], unscaled, out.valid,
+            inputs['depth_postp'][..., 0], unscaled, out.valid,
             cfg.depth_crop, cfg.depth_mode)
     else:
         gt_depths = torch.full_like(track_depths, -1.0)
 
-    return state, FrameResult(
+    return states, FrameResult(
         det_bboxes=det.boxes, det_scores=det.scores, det_labels=det.labels,
         det_valid=det.valid, track_bboxes=unscaled,
         track_scores=out.scores, track_labels=out.labels,
         track_scales=out.scales, track_depths=track_depths,
         track_gt_depths=gt_depths, track_ids=out.ids, track_valid=out.valid)
+
+
+def predict_frame(module: YOLOXDetector, state: trk.TrackState,
+                  inputs: dict, frame_id: int, cfg: MOTConfig,
+                  scale_factor: Tuple[float, float] = (1.0, 1.0),
+                  ) -> Tuple[trk.TrackState, FrameResult]:
+    """Advance one stream one frame from preprocessed inputs (see
+    ``preprocess_frame_pure``: (1, H, W, C); raw (h, w, 3) 'img_u8' /
+    (h, w) 'disp_u16' as well when the stems run as kernels)."""
+    inputs = {k: v[None] if k in ('img_u8', 'disp_u16') else v
+              for k, v in inputs.items()}
+    states, res = predict_frames_batched(module, trk.add_stream_axis(state),
+                                         inputs, [frame_id], cfg,
+                                         scale_factor)
+    return trk.first_stream(states), trk.first_stream(res)
+
+
+def preprocess_raw(img_u8: torch.Tensor, disp_u16: torch.Tensor,
+                   out_h: int, out_w: int,
+                   depth_raw: Optional[torch.Tensor] = None) -> dict:
+    """(S, H, W, 3) uint8 + (S, H, W) uint16 raw frames -> the inputs of
+    ``predict_frames_batched``, the raw frames included for the stem
+    kernels."""
+    inputs = preprocess_frame_pure(img_u8, disp_u16, out_h, out_w, depth_raw)
+    inputs['img_u8'] = img_u8.contiguous()
+    inputs['disp_u16'] = disp_u16.contiguous()
+    return inputs
 
 
 def predict_frame_raw(module: YOLOXDetector, state: trk.TrackState,
@@ -111,21 +151,24 @@ def predict_frame_raw(module: YOLOXDetector, state: trk.TrackState,
                       ) -> Tuple[trk.TrackState, FrameResult]:
     """``predict_frame`` from raw frames: (H, W, 3) uint8 BGR and (H, W)
     uint16 disparity (65535 = invalid), padded to (out_h, out_w)."""
-    inputs = preprocess_frame_pure(img_u8, disp_u16, out_h, out_w, depth_raw)
-    inputs['img_u8'] = img_u8.contiguous()
-    inputs['disp_u16'] = disp_u16.contiguous()
-    return predict_frame(module, state, inputs, frame_id, cfg, scale_factor)
+    inputs = preprocess_raw(img_u8[None], disp_u16[None], out_h, out_w,
+                            None if depth_raw is None else depth_raw[None])
+    states, res = predict_frames_batched(module, trk.add_stream_axis(state),
+                                         inputs, [frame_id], cfg,
+                                         scale_factor)
+    return trk.first_stream(states), trk.first_stream(res)
 
 
 class OCSORTDisparity:
     """Streaming wrapper: holds the detector, its weights and the track
-    state, and runs one frame per call."""
+    state, and runs one frame per call, on the card unless ``device`` says
+    otherwise."""
 
     def __init__(self, cfg: MOTConfig = MOTConfig(),
                  module: Optional[YOLOXDetector] = None,
-                 device='cpu', seed: int = 0):
+                 device='cuda', seed: int = 0):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = checked_device(device)
         if module is None:
             module = YOLOXDetector(cfg.detector)
             init_weights(module, torch.Generator().manual_seed(seed))

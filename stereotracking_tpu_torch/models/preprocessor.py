@@ -26,8 +26,12 @@ def preprocess_frame_pure(img_u8: torch.Tensor, disp_u16: torch.Tensor,
                           ) -> Dict[str, torch.Tensor]:
     """(H, W, 3) uint8 + (H, W) uint16 -> dict of (1, H', W', C) float32:
     'img', 'disp_postp' (disparity repeated to 3 channels), 'disp_mask',
-    and 'depth_postp' when ``depth_raw`` is given."""
-    h, w = img_u8.shape[:2]
+    and 'depth_postp' when ``depth_raw`` is given.  S frames at once:
+    (S, H, W, 3) + (S, H, W) [+ (S, H, W)] -> (S, H', W', C)."""
+    if img_u8.dim() == 3:
+        img_u8, disp_u16 = img_u8[None], disp_u16[None]
+        depth_raw = None if depth_raw is None else depth_raw[None]
+    n, h, w = img_u8.shape[:3]
     ph, pw = out_h - h, out_w - w
 
     img = F.pad(img_u8.to(torch.float32), (0, 0, 0, pw, 0, ph))
@@ -38,12 +42,11 @@ def preprocess_frame_pure(img_u8: torch.Tensor, disp_u16: torch.Tensor,
     mask = F.pad(mask, (0, pw, 0, ph))
 
     out = {
-        'img': img[None],
-        'disp_postp': disp_postp[None, :, :, None].expand(1, out_h, out_w,
-                                                          3),
-        'disp_mask': mask[None, :, :, None],
+        'img': img,
+        'disp_postp': disp_postp[..., None].expand(n, out_h, out_w, 3),
+        'disp_mask': mask[..., None],
     }
     if depth_raw is not None:
         depth = F.pad(depth_raw.to(torch.float32), (0, pw, 0, ph))
-        out['depth_postp'] = depth[None, :, :, None]
+        out['depth_postp'] = depth[..., None]
     return out

@@ -2,27 +2,33 @@
 
 Port of ``stereotracking_tpu/models/tracker.py``.  The state is a
 ``TrackState`` of tensors with leading dimension K, advanced by
-``step(state, dets, frame_id, cfg)``.  The algorithm and its order are the
-JAX package's: gate detections; Kalman predict on confirmed tracks; OCM
-association on confirmed tracks, then on tentative tracks; OCR on the
-leftovers; online smoothing of recovered tracks; Kalman update and
-bookkeeping; new tracks; eviction.
+``step(state, dets, frame_id, cfg)``; S streams advance together when every
+field carries a leading stream axis (the port of ``jax.vmap`` over
+``step``).  The algorithm and its order are the JAX package's: gate
+detections; Kalman predict on confirmed tracks; OCM association on
+confirmed tracks, then on tentative tracks; OCR on the leftovers; online
+smoothing of recovered tracks; Kalman update and bookkeeping; new tracks;
+eviction.
 
 Where the JAX package branches on device (``lax.cond`` between the init
-path and the main path, the smoothing ``while_loop``), this port branches
-on the host, which costs a device-to-host sync each; so do the three
-assignments, which solve on the host (ops/assignment.py).
+path and the main path, the smoothing ``while_loop``), this port reads the
+decision on the host, one device-to-host sync each for all streams: a
+batch whose streams disagree runs both paths and selects per stream, as
+``vmap`` of ``lax.cond`` does.  The three assignments solve on the host
+(ops/assignment.py), one copy each way for all streams.
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from ..ops.assignment import linear_assignment_with_limit
 from ..structures.bbox import (bbox_area, bbox_cxcyah_to_xyxy,
                                bbox_iou_matrix, bbox_xyxy_to_cxcyah)
+from ..utils.devices import to_device
 from . import kalman
 
 
@@ -87,12 +93,16 @@ class TrackerOutput(NamedTuple):
     valid: torch.Tensor
 
 
-def init_state(cfg: TrackerConfig, device=None) -> TrackState:
+def init_state(cfg: TrackerConfig, device=None,
+               n_streams: Optional[int] = None) -> TrackState:
+    """Empty slots; with ``n_streams`` every field gets a leading stream
+    axis of that size."""
     K, R = cfg.num_slots, cfg.ring_size
     f32, i32 = torch.float32, torch.int32
+    lead = () if n_streams is None else (n_streams,)
 
     def z(*shape, dtype=f32, fill=0):
-        return torch.full(shape, fill, dtype=dtype, device=device)
+        return torch.full(lead + shape, fill, dtype=dtype, device=device)
 
     return TrackState(
         active=z(K, dtype=torch.bool), tentative=z(K, dtype=torch.bool),
@@ -107,24 +117,32 @@ def init_state(cfg: TrackerConfig, device=None) -> TrackState:
         num_tracks=z(dtype=i32))
 
 
+def _select_streams(mask: torch.Tensor, a: NamedTuple, b: NamedTuple):
+    """Per stream, the fields of ``a`` where ``mask`` (S,) holds, else
+    those of ``b`` (both with a leading stream axis)."""
+    return type(a)(*(torch.where(mask.view(-1, *[1] * (x.dim() - 1)), x, y)
+                     for x, y in zip(a, b)))
+
+
 def _k_step_observation(state: TrackState, cfg: TrackerConfig,
                         obs_count: torch.Tensor) -> torch.Tensor:
     R = cfg.ring_size
     pos = torch.remainder(obs_count - 1 - cfg.vel_delta_t, R).long()
-    k_obs = state.obs_ring.gather(1, pos[:, None, None].expand(-1, 1, 4))[:, 0]
-    k_valid = state.obs_ring_valid.gather(1, pos[:, None])[:, 0]
+    k_obs = state.obs_ring.gather(
+        2, pos[..., None, None].expand(-1, -1, 1, 4))[:, :, 0]
+    k_valid = state.obs_ring_valid.gather(2, pos[..., None])[..., 0]
     use_ring = (obs_count > cfg.vel_delta_t) & k_valid
-    return torch.where(use_ring[:, None], k_obs, state.last_bbox)
+    return torch.where(use_ring[..., None], k_obs, state.last_bbox)
 
 
 def _centers(b):
-    return (b[:, :2] + b[:, 2:]) / 2.0
+    return (b[..., :2] + b[..., 2:]) / 2.0
 
 
 def _vel_direction_batch(boxes_from, boxes_to):
     c_from, c_to = _centers(boxes_from), _centers(boxes_to)
-    dy = c_to[None, :, 1] - c_from[:, None, 1]
-    dx = c_to[None, :, 0] - c_from[:, None, 0]
+    dy = c_to[:, None, :, 1] - c_from[:, :, None, 1]
+    dx = c_to[:, None, :, 0] - c_from[:, :, None, 0]
     speed = torch.stack([dy, dx], -1)
     norm = torch.sqrt(speed[..., 0] ** 2 + speed[..., 1] ** 2) + 1e-6
     return speed / norm[..., None]
@@ -132,26 +150,27 @@ def _vel_direction_batch(boxes_from, boxes_to):
 
 def _vel_direction(box_from, box_to):
     c1, c2 = _centers(box_from), _centers(box_to)
-    speed = torch.stack([c2[:, 1] - c1[:, 1], c2[:, 0] - c1[:, 0]], -1)
-    norm = torch.sqrt(speed[:, 0] ** 2 + speed[:, 1] ** 2) + 1e-6
-    direction = speed / norm[:, None]
+    speed = torch.stack([c2[..., 1] - c1[..., 1], c2[..., 0] - c1[..., 0]],
+                        -1)
+    norm = torch.sqrt(speed[..., 0] ** 2 + speed[..., 1] ** 2) + 1e-6
+    direction = speed / norm[..., None]
     invalid = (box_from.sum(-1) < 0) | (box_to.sum(-1) < 0)
-    return torch.where(invalid[:, None], -1.0, direction)
+    return torch.where(invalid[..., None], -1.0, direction)
 
 
 def _ocm_cost(track_boxes, state: TrackState, dets: Detections,
               cfg: TrackerConfig) -> torch.Tensor:
     ious = bbox_iou_matrix(track_boxes, dets.bboxes)
     if cfg.weight_iou_with_det_scores:
-        ious = ious * dets.scores[None, :]
+        ious = ious * dets.scores[:, None, :]
     cost = 1.0 - ious
     k_obs = _k_step_observation(state, cfg, state.obs_count)
     valid = (state.velocity.sum(-1) != -2.0) & (k_obs.sum(-1) != -4.0)
     vel_to_match = _vel_direction_batch(k_obs, dets.bboxes)
-    angle_cos = (vel_to_match * state.velocity[:, None, :]).sum(-1)
+    angle_cos = (vel_to_match * state.velocity[:, :, None, :]).sum(-1)
     angle = torch.arccos(angle_cos.clamp(-1.0, 1.0))
     norm_angle = (angle - math.pi / 2.0) / math.pi
-    return cost + torch.where(valid[:, None], norm_angle, 0.0) * \
+    return cost + torch.where(valid[..., None], norm_angle, 0.0) * \
         cfg.vel_consist_weight
 
 
@@ -160,57 +179,89 @@ def _assign(cost, row_mask, col_mask, cfg: TrackerConfig):
                                         1.0 - cfg.match_iou_thr)
 
 
-def step(state: TrackState, dets: Detections, frame_id: int,
-         cfg: TrackerConfig) -> Tuple[TrackState, TrackerOutput]:
-    """Advance the tracker one frame (``frame_id`` a host int)."""
-    if frame_id == 0:
-        state = init_state(cfg, state.active.device)
-    flags = torch.stack([state.active.any(), dets.valid.any()]).tolist()
-    if not flags[0] or not flags[1]:            # one sync
-        return _init_path(state, dets, frame_id, cfg)
-    return _main_path(state, dets, frame_id, cfg)
+def step(state: TrackState, dets: Detections,
+         frame_id: Union[int, Sequence[int]], cfg: TrackerConfig
+         ) -> Tuple[TrackState, TrackerOutput]:
+    """Advance the tracker one frame.  One stream: fields (K, ...) and
+    (Nd, ...), ``frame_id`` a host int.  S streams: every field with a
+    leading stream axis and ``frame_id`` S host ints, one per stream (a
+    stream at frame 0 starts afresh).  Host syncs do not grow with S."""
+    if state.num_tracks.dim() == 0:
+        st, out = step(add_stream_axis(state), add_stream_axis(dets),
+                       [int(frame_id)], cfg)
+        return first_stream(st), first_stream(out)
+    dev = state.active.device
+    fids = [int(f) for f in frame_id]
+    fid = to_device(np.asarray(fids, np.int32), dev)
+    reset = np.asarray(fids) == 0
+    if reset.any():
+        fresh = init_state(cfg, dev, len(fids))
+        state = fresh if reset.all() else _select_streams(
+            to_device(reset, dev), fresh, state)
+    use_init = ~state.active.any(1) | ~dets.valid.any(1)
+    flags = use_init.tolist()                       # one sync
+    if all(flags):
+        return _init_path(state, dets, fid, cfg)
+    if not any(flags):
+        return _main_path(state, dets, fid, cfg)
+    a, b = _init_path(state, dets, fid, cfg), _main_path(state, dets, fid,
+                                                         cfg)
+    return (_select_streams(use_init, a[0], b[0]),
+            _select_streams(use_init, a[1], b[1]))
+
+
+def add_stream_axis(t: NamedTuple):
+    """A one-stream tuple of tensors as a batch of one stream."""
+    return type(t)(*(x[None] for x in t))
+
+
+def first_stream(t: NamedTuple):
+    """Stream 0 of a tuple of tensors with a leading stream axis."""
+    return type(t)(*(x[0] for x in t))
 
 
 def _new_ids(state: TrackState, is_new: torch.Tensor) -> torch.Tensor:
-    ids = state.num_tracks + torch.cumsum(is_new.to(torch.int32), 0) - 1
+    ids = state.num_tracks[:, None] + torch.cumsum(
+        is_new.to(torch.int32), 1) - 1
     return torch.where(is_new, ids, -1).to(torch.int32)
 
 
 def _count_new(state: TrackState, is_new: torch.Tensor) -> TrackState:
     return state._replace(num_tracks=(
-        state.num_tracks + is_new.sum(dtype=torch.int32)).to(torch.int32))
+        state.num_tracks + is_new.sum(1, dtype=torch.int32)).to(torch.int32))
 
 
-def _init_path(state, dets, frame_id, cfg):
+def _init_path(state, dets, fid, cfg):
     is_new = dets.valid & (dets.scores > cfg.init_track_thr)
     new_ids = _new_ids(state, is_new)
-    state = _spawn_tracks(state, dets, is_new, new_ids, frame_id, cfg)
-    state = _count_new(_evict(state, frame_id, cfg), is_new)
+    state = _spawn_tracks(state, dets, is_new, new_ids, fid, cfg)
+    state = _count_new(_evict(state, fid, cfg), is_new)
     out = TrackerOutput(bboxes=dets.bboxes, scores=dets.scores,
                         labels=dets.labels, scales=dets.scales,
                         depths=dets.depths, ids=new_ids, valid=is_new)
     return state, out
 
 
-def _main_path(state, dets, frame_id, cfg):
-    K, Nd = cfg.num_slots, dets.bboxes.shape[0]
+def _main_path(state, dets, fid, cfg):
+    K, Nd = cfg.num_slots, dets.bboxes.shape[1]
     gate = dets.valid & (dets.scores > cfg.obj_score_thr) & \
         (bbox_area(dets.bboxes) > cfg.min_det_area)
 
     # 1. Kalman predict on confirmed tracks
     confirmed = state.active & ~state.tentative
-    lost = state.last_frame != frame_id - 1
+    lost = state.last_frame != (fid - 1)[:, None]
     mean = state.mean.clone()
-    mean[:, 7] = torch.where(confirmed & lost, 0.0, state.mean[:, 7])
+    mean[..., 7] = torch.where(confirmed & lost, 0.0, state.mean[..., 7])
     save = confirmed & state.tracked
-    saved_mean = torch.where(save[:, None], mean, state.saved_mean)
-    saved_cov = torch.where(save[:, None, None], state.cov, state.saved_cov)
+    saved_mean = torch.where(save[..., None], mean, state.saved_mean)
+    saved_cov = torch.where(save[..., None, None], state.cov,
+                            state.saved_cov)
     pmean, pcov = kalman.predict(mean, state.cov)
-    mean = torch.where(confirmed[:, None], pmean, mean)
-    cov = torch.where(confirmed[:, None, None], pcov, state.cov)
+    mean = torch.where(confirmed[..., None], pmean, mean)
+    cov = torch.where(confirmed[..., None, None], pcov, state.cov)
     state = state._replace(mean=mean, cov=cov, saved_mean=saved_mean,
                            saved_cov=saved_cov)
-    track_boxes = bbox_cxcyah_to_xyxy(mean[:, :4])
+    track_boxes = bbox_cxcyah_to_xyxy(mean[..., :4])
 
     # 2-4. OCM on confirmed, OCM on tentative, OCR on the rest
     cost = _ocm_cost(track_boxes, state, dets, cfg)
@@ -222,7 +273,7 @@ def _main_path(state, dets, frame_id, cfg):
     ocr_rows = state.active & ~((row1 >= 0) | (row2 >= 0))
     ocr_ious = bbox_iou_matrix(state.last_bbox, dets.bboxes)
     if cfg.weight_iou_with_det_scores:
-        ocr_ious = ocr_ious * dets.scores[None, :]
+        ocr_ious = ocr_ious * dets.scores[:, None, :]
     row3, col3 = _assign(1.0 - ocr_ious, ocr_rows,
                          gate & ~det_matched1 & ~det_matched2, cfg)
 
@@ -235,25 +286,25 @@ def _main_path(state, dets, frame_id, cfg):
 
     # 5-6. online smoothing for recovered tracks
     safe_det = slot_det.clamp(0, Nd - 1).long()
-    match_bbox = dets.bboxes[safe_det]
+    match_bbox = dets.bboxes.gather(1, safe_det[..., None].expand(-1, -1, 4))
     recovered = slot_matched & ~state.tracked
     unmatch_len = torch.where(recovered, state.miss_count, 0)
     shift = (match_bbox - state.last_bbox) / \
-        (unmatch_len[:, None].to(torch.float32) + 1.0)
-    mean = torch.where(recovered[:, None], state.saved_mean, state.mean)
-    cov = torch.where(recovered[:, None, None], state.saved_cov, state.cov)
-    max_replay = int(torch.where(recovered, unmatch_len, 0).max())  # sync
+        (unmatch_len[..., None].to(torch.float32) + 1.0)
+    mean = torch.where(recovered[..., None], state.saved_mean, state.mean)
+    cov = torch.where(recovered[..., None, None], state.saved_cov, state.cov)
+    max_replay = int(unmatch_len.max())                         # one sync
     for i in range(max_replay):
         virtual = state.last_bbox + float(i + 1) * shift
         m2, c2 = kalman.update(mean, cov, bbox_xyxy_to_cxcyah(virtual))
         apply = recovered & (i < unmatch_len)
-        mean = torch.where(apply[:, None], m2, mean)
-        cov = torch.where(apply[:, None, None], c2, cov)
+        mean = torch.where(apply[..., None], m2, mean)
+        cov = torch.where(apply[..., None, None], c2, cov)
 
     # 7. Kalman update + bookkeeping for matched tracks
     umean, ucov = kalman.update(mean, cov, bbox_xyxy_to_cxcyah(match_bbox))
-    mean = torch.where(slot_matched[:, None], umean, mean)
-    cov = torch.where(slot_matched[:, None, None], ucov, cov)
+    mean = torch.where(slot_matched[..., None], umean, mean)
+    cov = torch.where(slot_matched[..., None, None], ucov, cov)
     new_hits = torch.where(slot_matched, state.hits + 1, state.hits)
     now_confirmed = state.tentative & slot_matched & \
         (new_hits >= cfg.num_tentatives)
@@ -262,20 +313,23 @@ def _main_path(state, dets, frame_id, cfg):
     R = cfg.ring_size
     onehot = (torch.nn.functional.one_hot(
         torch.remainder(state.obs_count, R).long(), R).bool()
-        & state.active[:, None])
-    obs_ring = torch.where(onehot[..., None], match_bbox[:, None, :],
+        & state.active[..., None])
+    obs_ring = torch.where(onehot[..., None], match_bbox[:, :, None, :],
                            state.obs_ring)
-    obs_ring_valid = torch.where(onehot, slot_matched[:, None],
+    obs_ring_valid = torch.where(onehot, slot_matched[..., None],
                                  state.obs_ring_valid)
     obs_count = torch.where(state.active, state.obs_count + 1,
                             state.obs_count)
-    last_bbox = torch.where(slot_matched[:, None], match_bbox,
+    last_bbox = torch.where(slot_matched[..., None], match_bbox,
                             state.last_bbox)
     tmp = state._replace(obs_ring=obs_ring, obs_ring_valid=obs_ring_valid,
                          last_bbox=last_bbox)
     vel = _vel_direction(_k_step_observation(tmp, cfg, obs_count),
                          match_bbox)
-    velocity = torch.where(slot_matched[:, None], vel, state.velocity)
+    velocity = torch.where(slot_matched[..., None], vel, state.velocity)
+
+    def at_det(x):
+        return x.gather(1, safe_det)
 
     state = state._replace(
         mean=mean, cov=cov, hits=new_hits, tentative=new_tentative,
@@ -287,25 +341,22 @@ def _main_path(state, dets, frame_id, cfg):
             torch.where(state.active, state.miss_count + 1,
                         state.miss_count)).to(torch.int32),
         last_bbox=last_bbox,
-        last_frame=torch.where(slot_matched, frame_id,
+        last_frame=torch.where(slot_matched, fid[:, None],
                                state.last_frame).to(torch.int32),
-        scores=torch.where(slot_matched, dets.scores[safe_det],
-                           state.scores),
-        scales=torch.where(slot_matched, dets.scales[safe_det],
-                           state.scales),
-        depths=torch.where(slot_matched, dets.depths[safe_det],
-                           state.depths),
-        labels=torch.where(slot_matched, dets.labels[safe_det],
-                           state.labels))
+        scores=torch.where(slot_matched, at_det(dets.scores), state.scores),
+        scales=torch.where(slot_matched, at_det(dets.scales), state.scales),
+        depths=torch.where(slot_matched, at_det(dets.depths), state.depths),
+        labels=torch.where(slot_matched, at_det(dets.labels), state.labels))
 
     # 8. new tracks for unmatched gated dets; 9. eviction
     is_new = gate & ~det_matched
     new_ids = _new_ids(state, is_new)
-    state = _spawn_tracks(state, dets, is_new, new_ids, frame_id, cfg)
-    state = _count_new(_evict(state, frame_id, cfg), is_new)
+    state = _spawn_tracks(state, dets, is_new, new_ids, fid, cfg)
+    state = _count_new(_evict(state, fid, cfg), is_new)
 
     safe_slot = det_slot.clamp(0, K - 1).long()
-    out_ids = torch.where(det_matched, state.ids[safe_slot], new_ids)
+    out_ids = torch.where(det_matched, state.ids.gather(1, safe_slot),
+                          new_ids)
     out = TrackerOutput(bboxes=dets.bboxes, scores=dets.scores,
                         labels=dets.labels, scales=dets.scales,
                         depths=dets.depths, ids=out_ids.to(torch.int32),
@@ -314,38 +365,43 @@ def _main_path(state, dets, frame_id, cfg):
 
 
 def _scatter(target: torch.Tensor, idx: torch.Tensor, values) -> torch.Tensor:
-    """target.at[idx].set(values, mode='drop') for idx in [0, K] (K =
-    drop): written through a padded copy, so no host sync."""
-    K = target.shape[0]
-    pad = torch.cat([target, target[:1]], 0)
+    """Per stream, target.at[idx].set(values, mode='drop') for idx (S, Nd)
+    in [0, K] (K = drop): written through a padded copy, so no host sync.
+    ``values``: (S, Nd, ...) or a scalar."""
+    S, K = target.shape[:2]
+    pad = torch.cat([target, target[:, :1]], 1)
     if not torch.is_tensor(values):
-        values = torch.full((idx.shape[0],) + target.shape[1:], values,
+        values = torch.full(idx.shape + target.shape[2:], values,
                             dtype=target.dtype, device=target.device)
-    pad[idx.long()] = values.to(target.dtype)
-    return pad[:K]
+    rows = torch.arange(S, device=idx.device)[:, None].expand_as(idx)
+    pad[rows, idx.long()] = values.to(target.dtype)
+    return pad[:, :K]
 
 
 def _spawn_tracks(state: TrackState, dets: Detections, is_new, new_ids,
-                  frame_id: int, cfg: TrackerConfig) -> TrackState:
+                  fid: torch.Tensor, cfg: TrackerConfig) -> TrackState:
     K, R = cfg.num_slots, cfg.ring_size
-    Nd = dets.bboxes.shape[0]
+    S, Nd = dets.bboxes.shape[:2]
     dev = dets.bboxes.device
     free = ~state.active
-    free_order = torch.sort((~free).to(torch.int8), stable=True).indices
-    num_free = free.sum(dtype=torch.int32)
-    new_rank = torch.cumsum(is_new.to(torch.int32), 0) - 1
-    fits = is_new & (new_rank < num_free)
-    slot = torch.where(fits, free_order[new_rank.clamp(0, K - 1).long()], K)
+    free_order = torch.sort((~free).to(torch.int8), dim=1,
+                            stable=True).indices
+    num_free = free.sum(1, dtype=torch.int32)
+    new_rank = torch.cumsum(is_new.to(torch.int32), 1) - 1
+    fits = is_new & (new_rank < num_free[:, None])
+    slot = torch.where(
+        fits, free_order.gather(1, new_rank.clamp(0, K - 1).long()), K)
 
     imean, icov = kalman.initiate(bbox_xyxy_to_cxcyah(dets.bboxes))
-    ring = torch.zeros((Nd, R, 4), dtype=torch.float32, device=dev)
-    ring[:, 0] = dets.bboxes
-    ring_valid = torch.zeros((Nd, R), dtype=torch.bool, device=dev)
-    ring_valid[:, 0] = True
+    ring = torch.zeros((S, Nd, R, 4), dtype=torch.float32, device=dev)
+    ring[:, :, 0] = dets.bboxes
+    ring_valid = torch.zeros((S, Nd, R), dtype=torch.bool, device=dev)
+    ring_valid[:, :, 0] = True
+    per_det = fid[:, None].expand(-1, Nd)
     st = state
     return st._replace(
         active=_scatter(st.active, slot, True),
-        tentative=_scatter(st.tentative, slot, frame_id != 0),
+        tentative=_scatter(st.tentative, slot, per_det != 0),
         tracked=_scatter(st.tracked, slot, True),
         ids=_scatter(st.ids, slot, new_ids),
         labels=_scatter(st.labels, slot, dets.labels),
@@ -358,7 +414,7 @@ def _spawn_tracks(state: TrackState, dets: Detections, is_new, new_ids,
         scales=_scatter(st.scales, slot, dets.scales),
         depths=_scatter(st.depths, slot, dets.depths),
         velocity=_scatter(st.velocity, slot, -1.0),
-        last_frame=_scatter(st.last_frame, slot, frame_id),
+        last_frame=_scatter(st.last_frame, slot, per_det),
         hits=_scatter(st.hits, slot, 1),
         miss_count=_scatter(st.miss_count, slot, 0),
         obs_count=_scatter(st.obs_count, slot, 1),
@@ -366,8 +422,8 @@ def _spawn_tracks(state: TrackState, dets: Detections, is_new, new_ids,
         obs_ring_valid=_scatter(st.obs_ring_valid, slot, ring_valid))
 
 
-def _evict(state: TrackState, frame_id: int, cfg: TrackerConfig
+def _evict(state: TrackState, fid: torch.Tensor, cfg: TrackerConfig
            ) -> TrackState:
-    case1 = (frame_id - state.last_frame) >= cfg.num_frames_retain
-    case2 = state.tentative & (state.last_frame != frame_id)
+    case1 = (fid[:, None] - state.last_frame) >= cfg.num_frames_retain
+    case2 = state.tentative & (state.last_frame != fid[:, None])
     return state._replace(active=state.active & ~(case1 | case2))

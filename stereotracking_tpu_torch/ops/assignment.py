@@ -6,7 +6,8 @@ solver on the K x (N + K) embedding, with the same float32 arithmetic and
 the same first-index argmin tie order, so matches and track ids agree with
 the JAX package.  The solver runs in numpy on a CPU copy of the cost
 matrix: one device-to-host copy (a sync) per call when the inputs live on
-the GPU.  A device solver is later work.
+the GPU, for all the streams of a batch, and one asynchronous copy of the
+results back.  A device solver is later work.
 """
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from ..utils.devices import to_device
 
 _BIG = np.float32(1e4)      # forbidden-pair cost
 _INF = np.float32(1e18)     # Dijkstra sentinel
@@ -114,14 +117,22 @@ def linear_assignment_np(cost: np.ndarray, row_mask: np.ndarray,
 def linear_assignment_with_limit(cost: torch.Tensor, row_mask: torch.Tensor,
                                  col_mask: torch.Tensor, cost_limit: float
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``linear_assignment_np`` on tensors: solved on a host copy, results
-    returned as int32 tensors on the inputs' device."""
+    """``linear_assignment_np`` on tensors with optional leading stream
+    dims: cost (..., K, N), row_mask (..., K), col_mask (..., N) ->
+    (row_assign (..., K), col_assign (..., N)) int32 on the inputs' device.
+    All streams' problems go to the host in one copy and come back in one."""
     dev = cost.device
-    k, n = cost.shape
-    packed = torch.cat([cost.float().reshape(-1), row_mask.float(),
-                        col_mask.float()]).cpu().numpy()    # one sync
-    ra, ca = linear_assignment_np(packed[:k * n].reshape(k, n),
-                                  packed[k * n:k * n + k] > 0.5,
-                                  packed[k * n + k:] > 0.5, cost_limit)
-    both = torch.from_numpy(np.concatenate([ra, ca])).to(dev)
-    return both[:k], both[k:]
+    lead = cost.shape[:-2]
+    k, n = cost.shape[-2:]
+    s = int(np.prod(lead, dtype=np.int64))
+    packed = torch.cat([cost.float().reshape(s, k * n),
+                        row_mask.reshape(s, k).float(),
+                        col_mask.reshape(s, n).float()], 1).cpu().numpy()
+    both = np.empty((s, k + n), np.int32)
+    for i, row in enumerate(packed):                 # one sync above
+        ra, ca = linear_assignment_np(row[:k * n].reshape(k, n),
+                                      row[k * n:k * n + k] > 0.5,
+                                      row[k * n + k:] > 0.5, cost_limit)
+        both[i, :k], both[i, k:] = ra, ca
+    both = to_device(both, dev)
+    return both[:, :k].reshape(*lead, k), both[:, k:].reshape(*lead, n)

@@ -13,6 +13,10 @@ pixel, boxes larger than the crop window are sampled at stride 2^level.
 The fixed-point path runs its per-box statistics through
 ``depth_cuda.box_depth_stats`` (the CUDA kernel for CUDA tensors) and the
 arithmetic after it (``_finish``) as torch ops.
+
+Both extractions take maps with optional leading stream dims, (..., H, W),
+and the boxes of each map, (..., N, 4): S streams are one pass (one kernel
+launch) over their S * N boxes.
 """
 from __future__ import annotations
 
@@ -101,19 +105,35 @@ def _finish(n, r_vals, cnt_lt, sum_lt, corners, skip):
 def depth_epilogue(disp: torch.Tensor, boxes: torch.Tensor,
                    valid: torch.Tensor, stats: torch.Tensor, crop: int,
                    bf: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(depth, scale) per box from the kernel's (B, 24) stats row."""
-    h, w = disp.shape
+    """(depth, scale), each (S, N), from the kernel's (S * N, 24) stats
+    rows of the (S, N, 4) boxes on the (S, H, W) maps."""
+    h, w = disp.shape[1:]
+    n_streams, n_boxes = boxes.shape[:2]
+    flat, flat_valid = boxes.reshape(-1, 4), valid.reshape(-1)
+    sidx = torch.arange(n_streams, device=disp.device).repeat_interleave(
+        n_boxes)[:, None, None]
     n = stats[:, 0].to(torch.int32)
     r_vals = f_depth(stats[:, 1:9].to(torch.int32), bf)
     cnt_lt = stats[:, 9:16].to(torch.int32)
     sum_lt = stats[:, 16:23]
 
     def values_at(yy, xx):
-        return f_depth(torch.round(disp[yy, xx] * 16.0).to(torch.int32), bf)
+        return f_depth(torch.round(disp[sidx, yy, xx] * 16.0).to(torch.int32),
+                       bf)
 
-    corners = _corner_means(values_at, boxes, h, w, crop)
-    return _finish(n, r_vals, cnt_lt, sum_lt, corners,
-                   _skip(boxes, valid, h, w))
+    corners = _corner_means(values_at, flat, h, w, crop)
+    d, scale = _finish(n, r_vals, cnt_lt, sum_lt, corners,
+                       _skip(flat, flat_valid, h, w))
+    return d.reshape(n_streams, n_boxes), scale.reshape(n_streams, n_boxes)
+
+
+def _streams(maps: torch.Tensor, bboxes: torch.Tensor, valid: torch.Tensor):
+    """(..., H, W) maps and their (..., N, 4) boxes -> (S, H, W),
+    (S, N, 4), (S, N), and the leading dims to restore."""
+    lead = bboxes.shape[:-2]
+    return (maps.reshape(-1, *maps.shape[-2:]),
+            bboxes.reshape(-1, *bboxes.shape[-2:]),
+            valid.reshape(-1, valid.shape[-1]), lead)
 
 
 def extract_box_depths_disp(disp: torch.Tensor, bboxes: torch.Tensor,
@@ -123,13 +143,15 @@ def extract_box_depths_disp(disp: torch.Tensor, bboxes: torch.Tensor,
     """Corner-guided depth of each box, from the fixed-point disparity
     (``disp * 16`` integral in [0, 65535]) in the integer domain.
 
-    disp (H, W) float32, bboxes (B, 4) xyxy, valid (B,) bool ->
-    (depth, scale), each (B,)."""
-    h, w = disp.shape
+    disp (..., H, W) float32, bboxes (..., N, 4) xyxy, valid (..., N) bool
+    -> (depth, scale), each (..., N); one kernel launch for all maps."""
+    disp, boxes, valid, lead = _streams(disp, bboxes, valid)
+    h, w = disp.shape[1:]
     bf = float(baseline) * float(focal_length)
-    scal = box_scalars(bboxes, crop, depth_rmin(bf), h, w)
+    scal = box_scalars(boxes, crop, depth_rmin(bf), h, w)
     stats = box_depth_stats(disp, scal, crop, bf)
-    return depth_epilogue(disp, bboxes, valid, stats, crop, bf)
+    d, scale = depth_epilogue(disp, boxes, valid, stats, crop, bf)
+    return d.reshape(*lead, -1), scale.reshape(*lead, -1)
 
 
 def extract_box_depths(depth: torch.Tensor, bboxes: torch.Tensor,
@@ -138,11 +160,15 @@ def extract_box_depths(depth: torch.Tensor, bboxes: torch.Tensor,
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Corner-guided depth of each box from a metric depth map (float
     path, used for the GT-depth column): order statistics by a 31-step
-    bisection over the float bit patterns, as in the JAX package."""
+    bisection over the float bit patterns, as in the JAX package.  Maps
+    (..., H, W), boxes (..., N, 4), as ``extract_box_depths_disp``."""
     if mode != 'corner_guided':
         raise NotImplementedError(f'depth mode {mode!r} is not ported')
-    h, w = depth.shape
-    scal = box_scalars(bboxes, crop, 0, h, w)
+    depth, boxes, valid, lead = _streams(depth, bboxes, valid)
+    h, w = depth.shape[1:]
+    scal = box_scalars(boxes, crop, 0, h, w)
+    sidx = scal[:, 7].long()[:, None, None]
+    boxes, valid = boxes.reshape(-1, 4), valid.reshape(-1)
     vals, inside = box_windows(depth, scal, crop)
     dvals = torch.where(inside, vals, 0.0)
     ok = (dvals > 0.0) & (dvals < MAX_DEPTH)
@@ -166,6 +192,8 @@ def extract_box_depths(depth: torch.Tensor, bboxes: torch.Tensor,
     below = okb & (bits[:, None, :] < hi[:, 1:, None])
     cnt_lt = below.sum(2).to(torch.int32)
     sum_lt = torch.where(below, dvals[:, None, :], 0.0).sum(2)
-    corners = _corner_means(lambda y, x: depth[y, x], bboxes, h, w, crop)
-    return _finish(n, r_vals, cnt_lt, sum_lt, corners,
-                   _skip(bboxes, valid, h, w))
+    corners = _corner_means(lambda y, x: depth[sidx, y, x], boxes, h, w,
+                            crop)
+    d, scale = _finish(n, r_vals, cnt_lt, sum_lt, corners,
+                       _skip(boxes, valid, h, w))
+    return d.reshape(*lead, -1), scale.reshape(*lead, -1)

@@ -2,7 +2,8 @@
 
 Replaces the Pallas kernel ``stereotracking_tpu/ops/depth_pallas.py``
 (``_stats_pallas`` / ``_kernel_impl``, reached through
-``extract_box_depths_disp_pallas``).  For each box it reads a crop x crop
+``extract_box_depths_disp_pallas``).  One launch covers the boxes of S
+streams, each box naming its stream's map.  For each box it reads a crop x crop
 window of the fixed-point disparity map at pyramid level
 ``ceil(log2(size / crop))`` (stride 2^level, no pyramid copy), as integer
 raw values ``round(disp * 16)`` masked to the box, the frame and
@@ -26,7 +27,7 @@ from .. import _kernels
 
 MAX_DEPTH = 150.0
 PYR_LEVELS = 4      # strides 1, 2, 4, 8
-NSCAL = 8           # level, y0, x0, nrows, ncols, stride, rmin, 0
+NSCAL = 8           # level, y0, x0, nrows, ncols, stride, rmin, stream
 NOUT = 24           # n, r_raw[8], cnt_lt[7], sum_lt[7], 0
 
 
@@ -50,11 +51,13 @@ def depth_rmin(bf: float) -> int:
 
 def box_scalars(boxes: torch.Tensor, crop: int, rmin: int, h: int,
                 w: int) -> torch.Tensor:
-    """(B, 4) xyxy float boxes -> (B, 8) int32 kernel scalars: pyramid
-    level, window origin (y0, x0) in level coordinates, rows and columns in
-    the box (at most crop), stride, rmin.  Same level and window selection
-    as ``extract_box_depths_disp`` (``ops/depth.py:159-185`` of the JAX
-    package)."""
+    """(S, N, 4) xyxy float boxes -> (S * N, 8) int32 kernel scalars:
+    pyramid level, window origin (y0, x0) in level coordinates, rows and
+    columns in the box (at most crop), stride, rmin, stream.  Same level
+    and window selection as ``extract_box_depths_disp``
+    (``ops/depth.py:159-185`` of the JAX package)."""
+    n_streams, n_boxes = boxes.shape[:2]
+    boxes = boxes.reshape(-1, 4)
     x1 = boxes[:, 0].to(torch.int32)
     y1 = boxes[:, 1].to(torch.int32)
     x2 = boxes[:, 2].to(torch.int32)
@@ -72,9 +75,10 @@ def box_scalars(boxes: torch.Tensor, crop: int, rmin: int, h: int,
         max=crop)
     nc = torch.div(bw + stride - 1, stride, rounding_mode='floor').clamp(
         max=crop)
+    stream = torch.arange(n_streams, dtype=torch.int32,
+                          device=boxes.device).repeat_interleave(n_boxes)
     return torch.stack([level, y0, x0, nr, nc, stride,
-                        torch.full_like(level, rmin),
-                        torch.zeros_like(level)],
+                        torch.full_like(level, rmin), stream],
                        dim=1).to(torch.int32).contiguous()
 
 
@@ -94,17 +98,18 @@ def rank_windows(n: torch.Tensor):
 
 
 def box_windows(img: torch.Tensor, scal: torch.Tensor, crop: int):
-    """Each box's crop x crop window of ``img`` (H, W) at its pyramid
-    stride, flattened: (values, inside) of shape (B, crop * crop); inside =
-    in the box and in the frame."""
-    h, w = img.shape
-    y0, x0, nr, nc, stride = (scal[:, i, None, None] for i in range(1, 6))
+    """Each box's crop x crop window of its stream's map in ``img``
+    (S, H, W) at its pyramid stride, flattened: (values, inside) of shape
+    (B, crop * crop); inside = in the box and in the frame."""
+    h, w = img.shape[1:]
+    y0, x0, nr, nc, stride, sidx = (scal[:, i, None, None]
+                                    for i in (1, 2, 3, 4, 5, 7))
     rr = torch.arange(crop, device=img.device)[None, :, None]
     cc = torch.arange(crop, device=img.device)[None, None, :]
     y = (y0 + rr) * stride
     x = (x0 + cc) * stride
     inside = (rr < nr) & (cc < nc) & (y < h) & (x < w)
-    vals = img[y.clamp(max=h - 1), x.clamp(max=w - 1)]
+    vals = img[sidx, y.clamp(max=h - 1), x.clamp(max=w - 1)]
     nb = scal.shape[0]
     return vals.reshape(nb, -1), inside.reshape(nb, -1)
 
@@ -148,12 +153,13 @@ def box_depth_stats_plain(disp: torch.Tensor, scal: torch.Tensor, crop: int,
 
 def box_depth_stats(disp: torch.Tensor, scal: torch.Tensor, crop: int,
                     bf: float) -> torch.Tensor:
-    """(H, W) float32 disparity + (B, 8) int32 scalars -> (B, 24) stats.
+    """(S, H, W) float32 disparity + (B, 8) int32 scalars -> (B, 24) stats,
+    one launch for the boxes of all S streams.
 
     CPU tensors run ``box_depth_stats_plain``; CUDA tensors launch the
     kernel."""
-    if disp.dim() != 2 or disp.dtype != torch.float32:
-        raise ValueError(f'disparity must be (H, W) float32, got '
+    if disp.dim() != 3 or disp.dtype != torch.float32:
+        raise ValueError(f'disparity must be (S, H, W) float32, got '
                          f'{tuple(disp.shape)} {disp.dtype}')
     if scal.dim() != 2 or scal.shape[1] != NSCAL or scal.dtype != torch.int32:
         raise ValueError(f'scalars must be (B, {NSCAL}) int32')
@@ -162,7 +168,7 @@ def box_depth_stats(disp: torch.Tensor, scal: torch.Tensor, crop: int,
     if disp.device.type == 'cpu':
         return box_depth_stats_plain(disp, scal, crop, bf)
     _kernels.require_cuda('box_depth_stats', disp, scal)
-    h, w = disp.shape
+    h, w = disp.shape[1:]
     out = torch.empty((scal.shape[0], NOUT), dtype=torch.float32,
                       device=disp.device)
     if scal.shape[0] == 0:

@@ -5,7 +5,11 @@ order (a STABLE sort, so tied scores keep index order exactly as
 ``jax.lax.top_k`` does — ``torch.topk`` does not promise it), class offsets
 so one IoU pass serves all classes, and the greedy keep set found as the
 fixed point of ``keep[j] = not any(keep[i] and iou[i, j] > thr, i < j)``.
-The fixed-point loop checks convergence on the host, one sync per pass.
+Inputs may carry leading stream dims, (..., A): all streams run one pass
+at a time.  The fixed-point loop checks convergence on the host once per
+``PASSES_PER_CHECK`` passes for all streams together: a pass past the fixed
+point changes nothing, so the extra passes cost a little device time and
+save host round trips.
 """
 from __future__ import annotations
 
@@ -14,6 +18,8 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..structures.bbox import bbox_iou_matrix
+
+PASSES_PER_CHECK = 8
 
 
 class NMSResult(NamedTuple):
@@ -28,52 +34,66 @@ def batched_nms(boxes: torch.Tensor, scores: torch.Tensor,
                 score_threshold: float = 0.0, pre_nms_top_k: int = 2048,
                 max_out: int = 300) -> NMSResult:
     """Greedy class-aware NMS; suppresses IoU strictly above the
-    threshold.  Output has min(max_out, min(pre_nms_top_k, A)) slots."""
-    a = boxes.shape[0]
+    threshold.  Boxes (..., A, 4), scores and labels (..., A); output has
+    min(max_out, min(pre_nms_top_k, A)) slots per stream."""
+    lead = scores.shape[:-1]
+    a = scores.shape[-1]
+    boxes = boxes.reshape(-1, a, 4)
+    scores, labels = scores.reshape(-1, a), labels.reshape(-1, a)
     k = min(pre_nms_top_k, a)
     valid = scores > score_threshold
     masked = torch.where(valid, scores, float('-inf'))
-    top_scores, top_idx = torch.sort(masked, descending=True, stable=True)
-    top_scores, top_idx = top_scores[:k], top_idx[:k]
-    top_boxes = boxes[top_idx]
-    top_labels = labels[top_idx]
+    top_scores, top_idx = torch.sort(masked, dim=1, descending=True,
+                                     stable=True)
+    top_scores, top_idx = top_scores[:, :k], top_idx[:, :k]
+    top_boxes = boxes.gather(1, top_idx[..., None].expand(-1, -1, 4))
+    top_labels = labels.gather(1, top_idx)
 
     finite = torch.isfinite(top_scores)
-    span = torch.where(torch.isfinite(top_boxes), top_boxes, 0.0).max() + 1.0
-    offs = top_labels.to(torch.float32)[:, None] * span
+    span = torch.where(torch.isfinite(top_boxes), top_boxes, 0.0).amax(
+        dim=(1, 2), keepdim=True) + 1.0
+    offs = top_labels.to(torch.float32)[..., None] * span
     iou = bbox_iou_matrix(top_boxes + offs, top_boxes + offs)
     rows = torch.arange(k, device=boxes.device)
     sup = ((iou > iou_threshold) & (rows[:, None] < rows[None, :])
-           & finite[:, None] & finite[None, :])
+           & finite[:, :, None] & finite[:, None, :])
 
     keep = finite
-    for _ in range(k):
-        new = ~(sup & keep[:, None]).any(0)
-        if bool((new == keep).all()):
+    for _ in range(0, k, PASSES_PER_CHECK):
+        for _ in range(PASSES_PER_CHECK):
+            prev, keep = keep, ~(sup & keep[:, :, None]).any(1)
+        if bool((prev == keep).all()):                  # one sync
             break
-        keep = new
     keep = keep & finite
 
-    order = torch.sort((~keep).to(torch.int8), stable=True).indices[:max_out]
-    keep_mask = keep[order]
-    keep_mask = keep_mask & (torch.cumsum(keep_mask.to(torch.int32), 0)
+    order = torch.sort((~keep).to(torch.int8), dim=1,
+                       stable=True).indices[:, :max_out]
+    keep_mask = keep.gather(1, order)
+    keep_mask = keep_mask & (torch.cumsum(keep_mask.to(torch.int32), 1)
                              <= max_out)
-    out_boxes = torch.where(keep_mask[:, None], top_boxes[order], 0.0)
-    out_scores = torch.where(keep_mask, top_scores[order], 0.0)
-    out_labels = torch.where(keep_mask, top_labels[order], 0)
-    return NMSResult(out_boxes, out_scores, out_labels.to(torch.int32),
-                     keep_mask)
+    out_boxes = torch.where(keep_mask[..., None],
+                            top_boxes.gather(
+                                1, order[..., None].expand(-1, -1, 4)), 0.0)
+    out_scores = torch.where(keep_mask, top_scores.gather(1, order), 0.0)
+    out_labels = torch.where(keep_mask, top_labels.gather(1, order), 0)
+    m = order.shape[1]
+    return NMSResult(out_boxes.reshape(*lead, m, 4),
+                     out_scores.reshape(*lead, m),
+                     out_labels.to(torch.int32).reshape(*lead, m),
+                     keep_mask.reshape(*lead, m))
 
 
 def multiclass_candidates(boxes: torch.Tensor, scores: torch.Tensor,
                           score_threshold: float
                           ) -> Tuple[torch.Tensor, torch.Tensor,
                                      torch.Tensor]:
-    """(A, 4) boxes + (A, C) scores -> (A*C,) multi-label candidates."""
-    a, c = scores.shape
-    flat_scores = scores.reshape(-1)
+    """(..., A, 4) boxes + (..., A, C) scores -> (..., A*C) multi-label
+    candidates."""
+    a, c = scores.shape[-2:]
+    flat_scores = scores.reshape(*scores.shape[:-2], a * c)
     flat_labels = torch.arange(c, dtype=torch.int32,
-                               device=scores.device).repeat(a)
-    flat_boxes = boxes.repeat_interleave(c, dim=0) if c > 1 else boxes
+                               device=scores.device).repeat(a).expand_as(
+                                   flat_scores)
+    flat_boxes = boxes.repeat_interleave(c, dim=-2) if c > 1 else boxes
     flat_scores = torch.where(flat_scores > score_threshold, flat_scores, 0.0)
     return flat_boxes, flat_scores, flat_labels

@@ -9,58 +9,83 @@ Darknet bottleneck, final 1x1 O -> O — with one bf16 rounding per ConvBNAct
 ``bf16((rgb + disp) / 2)``.  Only ``num_blocks == 1`` is supported, as in
 the Pallas kernel.
 
-Input: the two stems' (H, W, C) bf16 NHWC activations; output
-(H/2, W/2, O) bf16 NHWC.
+Input: the two stems' (S, H, W, C) bf16 NHWC activations; output
+(S, H/2, W/2, O) bf16 NHWC, one launch for the S streams.
+
+``VARIANTS`` are the kernel's template instantiations, region height x
+width and GEMM inner loop; ``PRODUCTION`` is the one the main path runs.
+``stage1_dual_variant`` launches any of them (the probe,
+``tools/probe_stage1_variants.py``) and counts under ``stage1_variants``.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import _kernels
-from .stage2_cuda import StageWeights, check_stage_input, csp_chain_plain
+from .stage2_cuda import StageKernel, check_stage_input, nhwc_plain
+
+VARIANTS = ('r16x16_wmma', 'r8x16_wmma', 'r16x16_fma', 'r8x16_fma')
+PRODUCTION = 'r16x16_wmma'
 
 
-def _check(rgb, dsp, w_rgb: StageWeights, w_dsp: StageWeights):
-    if w_rgb.dims != w_dsp.dims:
-        raise ValueError(f'branch widths differ: {w_rgb.dims} vs '
-                         f'{w_dsp.dims}')
-    if w_rgb.dims[3] != 1:
+def _check(rgb, dsp, k_rgb: StageKernel, k_dsp: StageKernel):
+    if k_rgb.dims != k_dsp.dims:
+        raise ValueError(f'branch widths differ: {k_rgb.dims} vs '
+                         f'{k_dsp.dims}')
+    if k_rgb.dims[3] != 1:
         raise ValueError('the stage-1 kernel supports num_blocks == 1 '
                          '(deepen_factor <= 0.33)')
-    check_stage_input('stage1_dual', rgb, w_rgb)
+    check_stage_input('stage1_dual', rgb, k_rgb)
     if dsp.shape != rgb.shape or dsp.dtype != rgb.dtype:
         raise ValueError('both branch inputs must have one shape and dtype')
 
 
 def stage1_dual_plain(rgb: torch.Tensor, dsp: torch.Tensor,
-                      w_rgb: StageWeights, w_dsp: StageWeights
+                      k_rgb: StageKernel, k_dsp: StageKernel
                       ) -> torch.Tensor:
     """Plain PyTorch version of the kernel (same bf16 rounding points)."""
-    fr = csp_chain_plain(rgb.float().permute(2, 0, 1)[None], w_rgb)
-    fd = csp_chain_plain(dsp.float().permute(2, 0, 1)[None], w_dsp)
-    y = ((fr + fd) * 0.5).to(torch.bfloat16)
-    return y[0].permute(1, 2, 0).contiguous()
+    y = (nhwc_plain(rgb, k_rgb.wts) + nhwc_plain(dsp, k_dsp.wts)) * 0.5
+    return y.to(torch.bfloat16).contiguous()
+
+
+def _launch(rgb, dsp, k_rgb: StageKernel, k_dsp: StageKernel, variant: str,
+            counter: str) -> torch.Tensor:
+    cin, cout, mid, nb = k_rgb.dims
+    k_rgb.check_kernel_dims(counter)
+    _kernels.require_cuda(counter, rgb, dsp, k_rgb.w, k_rgb.sb, k_dsp.w,
+                          k_dsp.sb)
+    n, h, w = rgb.shape[:3]
+    out = torch.empty((n, h // 2, w // 2, cout), dtype=torch.bfloat16,
+                      device=rgb.device)
+    status = _kernels.library().st_stage1_dual(
+        rgb.data_ptr(), dsp.data_ptr(), n, h, w, cin, cout, mid, nb,
+        k_rgb.w.data_ptr(), k_rgb.sb.data_ptr(), k_dsp.w.data_ptr(),
+        k_dsp.sb.data_ptr(), out.data_ptr(), VARIANTS.index(variant),
+        _kernels.stream_ptr(rgb))
+    _kernels.check(status, f'{counter} {variant}')
+    _kernels.count_launch(counter)
+    return out
 
 
 def stage1_dual(rgb: torch.Tensor, dsp: torch.Tensor,
-                w_rgb: StageWeights, w_dsp: StageWeights) -> torch.Tensor:
-    """Fused dual stage 1: two (H, W, C) bf16 stems -> (H/2, W/2, O) bf16.
+                k_rgb: StageKernel, k_dsp: StageKernel) -> torch.Tensor:
+    """Fused dual stage 1: two (S, H, W, C) bf16 stems -> (S, H/2, W/2, O)
+    bf16.
 
     CPU tensors run ``stage1_dual_plain``; CUDA tensors launch the kernel."""
-    _check(rgb, dsp, w_rgb, w_dsp)
+    _check(rgb, dsp, k_rgb, k_dsp)
     if rgb.device.type == 'cpu':
-        return stage1_dual_plain(rgb, dsp, w_rgb, w_dsp)
-    cin, cout, mid, nb = w_rgb.dims
-    w_rgb.check_kernel_dims('stage1_dual')
-    (wr, sr), (wd, sd) = w_rgb.kernel_buffers(), w_dsp.kernel_buffers()
-    _kernels.require_cuda('stage1_dual', rgb, dsp, wr, sr, wd, sd)
-    h, w = rgb.shape[:2]
-    out = torch.empty((h // 2, w // 2, cout), dtype=torch.bfloat16,
-                      device=rgb.device)
-    status = _kernels.library().st_stage1_dual(
-        rgb.data_ptr(), dsp.data_ptr(), h, w, cin, cout, mid, nb,
-        wr.data_ptr(), sr.data_ptr(), wd.data_ptr(), sd.data_ptr(),
-        out.data_ptr(), _kernels.stream_ptr(rgb))
-    _kernels.check(status, 'stage1_dual')
-    _kernels.count_launch('stage1')
-    return out
+        return stage1_dual_plain(rgb, dsp, k_rgb, k_dsp)
+    return _launch(rgb, dsp, k_rgb, k_dsp, PRODUCTION, 'stage1')
+
+
+def stage1_dual_variant(rgb: torch.Tensor, dsp: torch.Tensor,
+                        k_rgb: StageKernel, k_dsp: StageKernel,
+                        variant: str) -> torch.Tensor:
+    """``stage1_dual`` through the kernel variant ``variant`` (one of
+    ``VARIANTS``), on CUDA tensors only: the variants differ in how the
+    card computes, so a CPU tensor has nothing to run."""
+    if variant not in VARIANTS:
+        raise ValueError(f'unknown variant {variant!r}; one of {VARIANTS}')
+    _check(rgb, dsp, k_rgb, k_dsp)
+    return _launch(rgb, dsp, k_rgb, k_dsp, variant, 'stage1_variants')

@@ -9,9 +9,11 @@ final 1x1 on [blocks | short].  Each ConvBNAct accumulates in float32,
 applies folded BatchNorm and SiLU in float32 and rounds to bfloat16 once;
 the residual sum rounds to bfloat16 as well.
 
-The kernel is generic over (C_in, C_out, num_blocks): the flagship's stage
-2 is (64, 128, 3), and stage 3 (128, 256, 3) can reuse it.  Input and
-output are canonical NHWC bf16: (H, W, C_in) -> (H/2, W/2, C_out).
+The kernel is generic over (C_in, C_out, num_blocks) as long as its shared
+memory fits: the flagship's stage 2 is (64, 128, 3); stage 3 (128, 256, 3)
+runs the two-launch kernel of ``ops/stage3_cuda.py`` on the same weights
+layout.  Input and output are canonical NHWC bf16 with a leading stream
+axis, one launch for all S streams: (S, H, W, C_in) -> (S, H/2, W/2, C_out).
 """
 from __future__ import annotations
 
@@ -45,20 +47,36 @@ class StageWeights(NamedTuple):
         return (self.entry_w.shape[2], self.entry_w.shape[3],
                 self.c1_w.shape[1], self.c1_w.shape[0])
 
-    def kernel_buffers(self):
-        """(bf16 weights, float32 scale/bias): the fields in the order the
-        kernel's ``weight_ptrs`` (csrc/csp_chain.cuh) reads them."""
-        w = torch.cat([t.reshape(-1) for t in (
-            self.entry_w, self.ms_w, self.c1_w, self.c2_w, self.fin_w)])
-        sb = torch.cat([t.reshape(-1) for t in (
-            self.entry_sb, self.ms_sb, self.c1_sb, self.c2_sb, self.fin_sb)])
-        return w.to(torch.bfloat16).contiguous(), sb.contiguous()
+
+class StageKernel(NamedTuple):
+    """A stage's weights as both versions take them: ``wts`` for the plain
+    version, and the same values packed once into the two buffers the CUDA
+    kernels read (``CSPDarknetDual.kernel_weights`` rebuilds them only when
+    a parameter changes)."""
+    wts: StageWeights
+    w: torch.Tensor          # bf16, the fields in weight_ptrs order
+    sb: torch.Tensor         # float32 [scale; bias] blocks, same order
+
+    @property
+    def dims(self):
+        return self.wts.dims
 
     def check_kernel_dims(self, name: str):
         if any(c % 16 for c in self.dims[:3]) or not 1 <= self.dims[3] <= 7:
             raise ValueError(f'{name}: the kernel needs channel counts that '
                              f'are multiples of 16 and 1-7 blocks, got '
                              f'{self.dims}')
+
+
+def pack_stage(wts: StageWeights) -> StageKernel:
+    """The fields in the order the kernels' ``weight_ptrs``
+    (csrc/csp_chain.cuh) reads them: bf16 weights, float32 scale/bias."""
+    w = torch.cat([t.reshape(-1) for t in (
+        wts.entry_w, wts.ms_w, wts.c1_w, wts.c2_w, wts.fin_w)])
+    sb = torch.cat([t.reshape(-1) for t in (
+        wts.entry_sb, wts.ms_sb, wts.c1_sb, wts.c2_sb, wts.fin_sb)])
+    return StageKernel(wts, w.to(torch.bfloat16).contiguous(),
+                       sb.contiguous())
 
 
 def _bf16(w: torch.Tensor) -> torch.Tensor:
@@ -73,7 +91,7 @@ def _w1x1(m: ConvBNAct) -> torch.Tensor:
     return _bf16(m.conv.weight[:, :, 0, 0].t())      # (in, out)
 
 
-def stage_weights(stage: nn.Sequential) -> StageWeights:
+def stage_weights(stage: nn.Sequential) -> StageKernel:
     """Kernel weights of a stage ``Sequential(ConvBNAct, CSPLayer)``."""
     conv, csp = stage[0], stage[-1]
     if not (isinstance(conv, ConvBNAct) and isinstance(csp, CSPLayer)
@@ -83,7 +101,7 @@ def stage_weights(stage: nn.Sequential) -> StageWeights:
     blocks = list(csp.blocks)
     if not blocks or not all(b.add_identity for b in blocks):
         raise ValueError('the fused stage kernel needs >= 1 residual block')
-    return StageWeights(
+    return pack_stage(StageWeights(
         entry_w=_bf16(conv.hwio()), entry_sb=_sb(conv),
         ms_w=torch.cat([_w1x1(csp.main_conv), _w1x1(csp.short_conv)], 1),
         ms_sb=torch.cat([_sb(csp.main_conv), _sb(csp.short_conv)], 1),
@@ -91,7 +109,7 @@ def stage_weights(stage: nn.Sequential) -> StageWeights:
         c1_sb=torch.stack([_sb(b.conv1) for b in blocks]),
         c2_w=torch.stack([_bf16(b.conv2.hwio()) for b in blocks]),
         c2_sb=torch.stack([_sb(b.conv2) for b in blocks]),
-        fin_w=_w1x1(csp.final_conv), fin_sb=_sb(csp.final_conv))
+        fin_w=_w1x1(csp.final_conv), fin_sb=_sb(csp.final_conv)))
 
 
 def _act(acc: torch.Tensor, sb: torch.Tensor) -> torch.Tensor:
@@ -107,8 +125,8 @@ def _conv(x, w_hwio, stride=1):
 
 
 def csp_chain_plain(x: torch.Tensor, wts: StageWeights) -> torch.Tensor:
-    """Plain PyTorch version of the stage on (1, C_in, H, W) bf16-valued
-    float32 -> (1, C_out, H/2, W/2) bf16-valued float32."""
+    """Plain PyTorch version of the stage on (S, C_in, H, W) bf16-valued
+    float32 -> (S, C_out, H/2, W/2) bf16-valued float32."""
     mid = wts.dims[2]
     z = _act(_conv(x, wts.entry_w, 2), wts.entry_sb)
     ms = _act(_conv(z, wts.ms_w[None, None]), wts.ms_sb)
@@ -121,38 +139,53 @@ def csp_chain_plain(x: torch.Tensor, wts: StageWeights) -> torch.Tensor:
                 wts.fin_sb)
 
 
-def check_stage_input(name: str, x: torch.Tensor, wts: StageWeights):
-    cin = wts.dims[0]
-    if x.dim() != 3 or x.shape[2] != cin or x.dtype != torch.bfloat16:
-        raise ValueError(f'{name}: input must be (H, W, {cin}) bfloat16, '
+def check_stage_input(name: str, x: torch.Tensor, k: StageKernel):
+    cin = k.dims[0]
+    if x.dim() != 4 or x.shape[3] != cin or x.dtype != torch.bfloat16:
+        raise ValueError(f'{name}: input must be (S, H, W, {cin}) bfloat16, '
                          f'got {tuple(x.shape)} {x.dtype}')
-    if x.shape[0] % 2 or x.shape[1] % 2:
+    if x.shape[1] % 2 or x.shape[2] % 2:
         raise ValueError(f'{name}: input H and W must be even, got '
                          f'{tuple(x.shape)}')
 
 
-def stage_csp_plain(x: torch.Tensor, wts: StageWeights) -> torch.Tensor:
-    y = csp_chain_plain(x.float().permute(2, 0, 1)[None], wts)
-    return y[0].to(torch.bfloat16).permute(1, 2, 0).contiguous()
+def nhwc_plain(x: torch.Tensor, wts: StageWeights) -> torch.Tensor:
+    """``csp_chain_plain`` on (S, H, W, C) bf16 -> (S, H/2, W/2, C_out)
+    bf16-valued float32."""
+    return csp_chain_plain(x.float().permute(0, 3, 1, 2), wts).permute(
+        0, 2, 3, 1)
 
 
-def stage_csp(x: torch.Tensor, wts: StageWeights) -> torch.Tensor:
-    """(H, W, C_in) bf16 -> (H/2, W/2, C_out) bf16 through the fused stage.
+def stage_csp_plain(x: torch.Tensor, k: StageKernel) -> torch.Tensor:
+    return nhwc_plain(x, k.wts).to(torch.bfloat16).contiguous()
+
+
+def launch_stage(entry: str, counter: str, x: torch.Tensor, k: StageKernel,
+                 *scratch: torch.Tensor) -> torch.Tensor:
+    """Launch the stage kernel ``entry`` of the library on (S, H, W, C_in)
+    CUDA ``x`` (``scratch``: extra device buffers it takes before the
+    output) and add one to the launch count ``counter``."""
+    cin, cout, mid, nb = k.dims
+    k.check_kernel_dims(counter)
+    _kernels.require_cuda(counter, x, k.w, k.sb, *scratch)
+    n, h, wd = x.shape[:3]
+    out = torch.empty((n, h // 2, wd // 2, cout), dtype=torch.bfloat16,
+                      device=x.device)
+    status = getattr(_kernels.library(), entry)(
+        x.data_ptr(), n, h, wd, cin, cout, mid, nb, k.w.data_ptr(),
+        k.sb.data_ptr(), *(t.data_ptr() for t in scratch), out.data_ptr(),
+        _kernels.stream_ptr(x))
+    _kernels.check(status, counter)
+    _kernels.count_launch(counter)
+    return out
+
+
+def stage_csp(x: torch.Tensor, k: StageKernel) -> torch.Tensor:
+    """(S, H, W, C_in) bf16 -> (S, H/2, W/2, C_out) bf16 through the fused
+    stage, one launch for the S streams.
 
     CPU tensors run ``stage_csp_plain``; CUDA tensors launch the kernel."""
-    check_stage_input('stage_csp', x, wts)
+    check_stage_input('stage_csp', x, k)
     if x.device.type == 'cpu':
-        return stage_csp_plain(x, wts)
-    cin, cout, mid, nb = wts.dims
-    wts.check_kernel_dims('stage_csp')
-    w, sb = wts.kernel_buffers()
-    _kernels.require_cuda('stage_csp', x, w, sb)
-    h, wd = x.shape[:2]
-    out = torch.empty((h // 2, wd // 2, cout), dtype=torch.bfloat16,
-                      device=x.device)
-    status = _kernels.library().st_stage_csp(
-        x.data_ptr(), h, wd, cin, cout, mid, nb, w.data_ptr(), sb.data_ptr(),
-        out.data_ptr(), _kernels.stream_ptr(x))
-    _kernels.check(status, 'stage_csp')
-    _kernels.count_launch('stage2')
-    return out
+        return stage_csp_plain(x, k)
+    return launch_stage('st_stage_csp', 'stage2', x, k)

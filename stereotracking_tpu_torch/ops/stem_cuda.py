@@ -7,14 +7,14 @@ convolution on the padded frame (padding 2 before, 3 after;
 ``layers.focus_kernel_to_strided``), then folded BatchNorm and SiLU in
 float32 and one bfloat16 rounding.
 
-The kernel reads the RAW frame: uint8 BGR (H, W, 3), or uint16 fixed-point
-disparity (H, W) with 65535 = invalid.  The preprocess is fused into its
-load: cast, 65535 -> 0, /16, zero padding to the padded size and to the
-convolution's border.  The disparity value ``disp/16`` is rounded to
+The kernel reads S RAW frames in one launch: uint8 BGR (S, H, W, 3), or
+uint16 fixed-point disparity (S, H, W) with 65535 = invalid.  The
+preprocess is fused into its load: cast, 65535 -> 0, /16, zero padding to
+the padded size and to the convolution's border.  The disparity value ``disp/16`` is rounded to
 bfloat16 before the product, as both JAX paths do, and the disparity branch
 runs the kernel summed over its three (identical) input channels.
 
-Output: (out_h/2, out_w/2, O) bfloat16, NHWC.
+Output: (S, out_h/2, out_w/2, O) bfloat16, NHWC.
 """
 from __future__ import annotations
 
@@ -44,16 +44,16 @@ def stem_weights(stem: Focus, sum_channels: bool
 
 
 def stem_input(frame: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
-    """Preprocessed (1, C, out_h, out_w) float32 stem input, the disparity
+    """Preprocessed (S, C, out_h, out_w) float32 stem input, the disparity
     rounded to bf16 after /16."""
-    h, w = frame.shape[:2]
+    h, w = frame.shape[1:3]
     if frame.dtype == torch.uint8:
-        x = frame.to(torch.float32).permute(2, 0, 1)
+        x = frame.to(torch.float32).permute(0, 3, 1, 2)
     else:
         d = frame.to(torch.int32)
         d = torch.where(d == 65535, 0, d).to(torch.float32) / 16.0
-        x = d.to(torch.bfloat16).to(torch.float32)[None]
-    return F.pad(x, (0, out_w - w, 0, out_h - h))[None]
+        x = d.to(torch.bfloat16).to(torch.float32)[:, None]
+    return F.pad(x, (0, out_w - w, 0, out_h - h))
 
 
 def focus_stem_plain(frame: torch.Tensor, w6: torch.Tensor,
@@ -61,26 +61,26 @@ def focus_stem_plain(frame: torch.Tensor, w6: torch.Tensor,
                      ) -> torch.Tensor:
     """Plain PyTorch version of the kernel (same bf16 rounding points)."""
     x = F.pad(stem_input(frame, out_h, out_w), (2, 3, 2, 3))
-    acc = F.conv2d(x, w6.permute(3, 2, 0, 1), stride=2)[0]
+    acc = F.conv2d(x, w6.permute(3, 2, 0, 1), stride=2)
     y = acc * sb[0][:, None, None] + sb[1][:, None, None]
     y = y * torch.sigmoid(y)
-    return y.to(torch.bfloat16).permute(1, 2, 0).contiguous()
+    return y.to(torch.bfloat16).permute(0, 2, 3, 1).contiguous()
 
 
 def focus_stem(frame: torch.Tensor, w6: torch.Tensor, sb: torch.Tensor,
                out_h: int, out_w: int) -> torch.Tensor:
-    """Stem activation (out_h/2, out_w/2, O) bf16 from a raw frame.
+    """Stem activations (S, out_h/2, out_w/2, O) bf16 from S raw frames.
 
     CPU tensors run ``focus_stem_plain``; CUDA tensors launch the kernel."""
     is_disp = frame.dtype != torch.uint8
-    h, w = frame.shape[:2]
     c = 1 if is_disp else 3
-    if is_disp and (frame.dtype != torch.uint16 or frame.dim() != 2):
-        raise ValueError(f'disparity must be (H, W) uint16, got '
+    if is_disp and (frame.dtype != torch.uint16 or frame.dim() != 3):
+        raise ValueError(f'disparity must be (S, H, W) uint16, got '
                          f'{tuple(frame.shape)} {frame.dtype}')
-    if not is_disp and (frame.dim() != 3 or frame.shape[2] != 3):
-        raise ValueError(f'image must be (H, W, 3) uint8, got '
+    if not is_disp and (frame.dim() != 4 or frame.shape[3] != 3):
+        raise ValueError(f'image must be (S, H, W, 3) uint8, got '
                          f'{tuple(frame.shape)}')
+    n, h, w = frame.shape[:3]
     o = w6.shape[-1]
     if (w6.dim() != 4 or tuple(w6.shape[:3]) != (6, 6, c)
             or o not in STEM_WIDTHS or w6.dtype != torch.float32):
@@ -94,11 +94,11 @@ def focus_stem(frame: torch.Tensor, w6: torch.Tensor, sb: torch.Tensor,
     if frame.device.type == 'cpu':
         return focus_stem_plain(frame, w6, sb, out_h, out_w)
     _kernels.require_cuda('focus_stem', frame, w6, sb)
-    out = torch.empty((out_h // 2, out_w // 2, o),
+    out = torch.empty((n, out_h // 2, out_w // 2, o),
                       dtype=torch.bfloat16, device=frame.device)
     lib = _kernels.library()
-    status = lib.st_focus_stem(frame.data_ptr(), int(is_disp), h, w, out_h,
-                               out_w, o, w6.data_ptr(), sb.data_ptr(),
+    status = lib.st_focus_stem(frame.data_ptr(), int(is_disp), n, h, w,
+                               out_h, out_w, o, w6.data_ptr(), sb.data_ptr(),
                                out.data_ptr(), _kernels.stream_ptr(frame))
     _kernels.check(status, 'focus_stem')
     _kernels.count_launch('stem')

@@ -6,7 +6,8 @@ conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
-Small shapes, full flagship widths; the tolerances are chip_smoke.py's.
+Small shapes, full flagship widths, one stream and S streams per launch;
+the tolerances are chip_smoke.py's.
 """
 import pytest
 import torch
@@ -16,11 +17,13 @@ from stereotracking_tpu_torch.models.detector import (DetectorConfig,
                                                       YOLOXDetector)
 from stereotracking_tpu_torch.models.mot import init_weights
 from stereotracking_tpu_torch.ops import (depth_cuda, stage1_cuda,
-                                          stage2_cuda, stem_cuda)
+                                          stage2_cuda, stage3_cuda,
+                                          stem_cuda)
 from stereotracking_tpu_torch.ops.depth import depth_epilogue
 
 pytestmark = pytest.mark.cuda
 H, W = 96, 160
+S = 3
 
 
 @pytest.fixture(scope='module')
@@ -41,10 +44,13 @@ def kw(dev):
 
 @pytest.fixture(scope='module')
 def frames(dev):
+    """S raw frames (S, 90, 150, 3) uint8 and (S, 90, 150) uint16."""
     g = torch.Generator().manual_seed(1)
-    img = torch.randint(0, 256, (90, 150, 3), generator=g, dtype=torch.uint8)
-    disp = torch.randint(16, 1600, (90, 150), generator=g, dtype=torch.int32)
-    disp[::4] = 65535
+    img = torch.randint(0, 256, (S, 90, 150, 3), generator=g,
+                        dtype=torch.uint8)
+    disp = torch.randint(16, 1600, (S, 90, 150), generator=g,
+                         dtype=torch.int32)
+    disp[:, ::4] = 65535
     return img.to(dev), disp.to(dev).to(torch.uint16)
 
 
@@ -59,7 +65,7 @@ def test_stem_kernel(frames, kw):
     before = _kernels.launch_counts()['stem']
     for k, p in _stem_pair(frames, kw):
         p = p.float()
-        assert k.shape == p.shape == (H // 2, W // 2, 32)
+        assert k.shape == p.shape == (S, H // 2, W // 2, 32)
         # one bf16 ulp, plus float32 reassociation where the sum cancels
         scale = p.abs().max()
         assert ((k.float() - p).abs() <= 2 ** -7 * p.abs()
@@ -80,6 +86,39 @@ def test_stage_kernels(frames, kw):
                                                    kw['disp_stage1']))
     y2 = stage2_cuda.stage_csp(y1, kw['stage2'])
     _stage_close(y2, stage2_cuda.stage_csp_plain(y1, kw['stage2']))
+    # one launch for S streams equals S launches of one stream
+    for s in range(S):
+        assert torch.equal(y2[s:s + 1],
+                           stage2_cuda.stage_csp(y1[s:s + 1], kw['stage2']))
+
+
+@pytest.mark.parametrize('hw', [(24, 40), (34, 60)])
+def test_stage3_kernel(dev, kw, hw):
+    """Stage 3 at full width (128 -> 256, 3 blocks) on stage-2-shaped
+    inputs, tile edges included (34 x 60 is the 1080p map / 4), counted
+    under its own name."""
+    g = torch.Generator().manual_seed(2)
+    x = (torch.randn((S, 2 * hw[0], 2 * hw[1], 128), generator=g) * 0.8).to(
+        torch.bfloat16).to(dev)
+    before = _kernels.launch_counts()
+    y = stage3_cuda.stage3_csp(x, kw['stage3'])
+    after = _kernels.launch_counts()
+    assert after['stage3'] == before['stage3'] + 1
+    assert after['stage2'] == before['stage2']
+    assert y.shape == (S, hw[0], hw[1], 256)
+    _stage_close(y, stage3_cuda.stage3_csp_plain(x, kw['stage3']))
+    assert torch.equal(y[1:2], stage3_cuda.stage3_csp(x[1:2], kw['stage3']))
+
+
+@pytest.mark.parametrize('variant', stage1_cuda.VARIANTS)
+def test_stage1_variants(frames, kw, variant):
+    (r, _), (d, _) = _stem_pair(frames, kw)
+    before = _kernels.launch_counts()['stage1_variants']
+    y = stage1_cuda.stage1_dual_variant(r, d, kw['stage1'],
+                                        kw['disp_stage1'], variant)
+    assert _kernels.launch_counts()['stage1_variants'] == before + 1
+    _stage_close(y, stage1_cuda.stage1_dual_plain(r, d, kw['stage1'],
+                                                  kw['disp_stage1']))
 
 
 def test_depth_kernel(dev, frames):
@@ -90,7 +129,8 @@ def test_depth_kernel(dev, frames):
     boxes = torch.tensor([[3, 4, 40, 30], [10, 10, 150, 90], [-5, 0, 9, 9],
                           [100, 50, 100, 70], [140, 80, 300, 200],
                           [0, 0, 160, 96]], dtype=torch.float32, device=dev)
-    valid = torch.ones(len(boxes), dtype=torch.bool, device=dev)
+    boxes = torch.stack([boxes + 3 * s for s in range(S)])
+    valid = torch.ones(boxes.shape[:2], dtype=torch.bool, device=dev)
     bf = 160.0
     scal = depth_cuda.box_scalars(boxes, 32, depth_cuda.depth_rmin(bf),
                                   H, W)
@@ -100,4 +140,5 @@ def test_depth_kernel(dev, frames):
     assert torch.allclose(ks[:, 16:], ps[:, 16:], rtol=1e-5, atol=1e-3)
     kd, _ = depth_epilogue(disp, boxes, valid, ks, 32, bf)
     pd, _ = depth_epilogue(disp, boxes, valid, ps, 32, bf)
+    assert kd.shape == (S, boxes.shape[1])
     assert torch.allclose(kd, pd, rtol=2e-6, atol=1e-5)

@@ -114,10 +114,11 @@ def test_stats_row_matches_pallas_kernel():
         [jnp.zeros((len(boxes), 1), jnp.int32), scal_j], 1)
     ref = np.asarray(jdp._stats_pallas(jnp.asarray(disp)[None], scal_j,
                                        bf=bf, crop=crop, interpret=True))
-    scal = depth_cuda.box_scalars(torch.from_numpy(boxes), crop, rmin, h, w)
+    scal = depth_cuda.box_scalars(torch.from_numpy(boxes)[None], crop, rmin,
+                                  h, w)
     np.testing.assert_array_equal(scal[:, 0].numpy(), np.asarray(scal_j[:, 1]))
-    out = depth_cuda.box_depth_stats(torch.from_numpy(disp), scal, crop,
-                                     bf).numpy()
+    out = depth_cuda.box_depth_stats(torch.from_numpy(disp)[None], scal,
+                                     crop, bf).numpy()
     assert out.shape == (len(boxes), 24)
     np.testing.assert_array_equal(out[:, :16], ref[:, :16])
     np.testing.assert_allclose(out[:, 16:23], ref[:, 16:23], rtol=1e-6,

@@ -69,10 +69,10 @@ def test_stem_plain_matches_pallas_within_one_ulp(world):
     """One bf16 rounding after BN + SiLU in float32, as the Pallas kernel
     rounds: every element within one bf16 ulp (both branches)."""
     kw = world['kw']
-    rgb = stem_cuda.focus_stem(torch.from_numpy(world['img']), *kw['stem'],
-                               H, W)
-    dsp = stem_cuda.focus_stem(torch.from_numpy(world['disp']),
-                               *kw['disp_stem'], H, W)
+    rgb = stem_cuda.focus_stem(torch.from_numpy(world['img'])[None],
+                               *kw['stem'], H, W)[0]
+    dsp = stem_cuda.focus_stem(torch.from_numpy(world['disp'])[None],
+                               *kw['disp_stem'], H, W)[0]
     for out, ref in ((rgb, world['so']), (dsp, world['dso'])):
         assert out.dtype == torch.bfloat16
         ref = _d2s(ref)
@@ -95,8 +95,8 @@ def test_stem_rounds_disparity_input_to_bf16(world):
         stem_pack_disp_device(jnp.asarray(disp), H, W), W // 4,
         interpret=True)
     ref = _d2s(dso)
-    out = stem_cuda.focus_stem(torch.from_numpy(disp), w6, sb, H, W)
-    out = out.float().numpy()
+    out = stem_cuda.focus_stem(torch.from_numpy(disp)[None], w6, sb, H, W)
+    out = out[0].float().numpy()
     assert not _beyond_ulp(out, ref).any()
     x = torch.nn.functional.pad(
         torch.from_numpy(disp.astype(np.float32) / 16.0)[None, None],
@@ -123,18 +123,18 @@ def _check_stage(out, ref):
 
 def test_stage1_plain_matches_pallas(world):
     kw = world['kw']
-    rgb = torch.from_numpy(_d2s(world['so'])).to(torch.bfloat16)
-    dsp = torch.from_numpy(_d2s(world['dso'])).to(torch.bfloat16)
+    rgb = torch.from_numpy(_d2s(world['so'])).to(torch.bfloat16)[None]
+    dsp = torch.from_numpy(_d2s(world['dso'])).to(torch.bfloat16)[None]
     out = stage1_cuda.stage1_dual(rgb, dsp, kw['stage1'], kw['disp_stage1'])
     assert out.dtype == torch.bfloat16
-    _check_stage(out, np.asarray(unfold_w(world['y1']), np.float32))
+    _check_stage(out[0], np.asarray(unfold_w(world['y1']), np.float32))
 
 
 def test_stage2_plain_matches_pallas(world):
     x = torch.from_numpy(np.asarray(unfold_w(world['y1']), np.float32)).to(
-        torch.bfloat16)
+        torch.bfloat16)[None]
     out = stage2_cuda.stage_csp(x, world['kw']['stage2'])
-    _check_stage(out, np.asarray(unfold_w(world['y2']), np.float32))
+    _check_stage(out[0], np.asarray(unfold_w(world['y2']), np.float32))
 
 
 def test_kernel_path_detector_matches_jax_kernel_path(world):
@@ -153,8 +153,8 @@ def test_kernel_path_detector_matches_jax_kernel_path(world):
     inputs = {'img': torch.from_numpy(img.astype(np.float32))[None],
               'disp_postp': torch.from_numpy(dispf)[None, :, :, None].expand(
                   1, H, W, 3),
-              'img_u8': torch.from_numpy(img),
-              'disp_u16': torch.from_numpy(disp)}
+              'img_u8': torch.from_numpy(img)[None],
+              'disp_u16': torch.from_numpy(disp)[None]}
     with torch.no_grad():
         out = det(inputs, 'cuda')
     for rl, ol in zip(ref, out):
@@ -165,17 +165,18 @@ def test_kernel_path_detector_matches_jax_kernel_path(world):
 
 def test_wrappers_reject_bad_inputs(world):
     kw = world['kw']
-    x = torch.zeros((16, 24, 32), dtype=torch.float32)
+    x = torch.zeros((1, 16, 24, 64), dtype=torch.float32)
     with pytest.raises(ValueError):
         stage2_cuda.stage_csp(x, kw['stage2'])           # not bf16
-    bad = kw['stage1']._replace(
-        c1_w=kw['stage1'].c1_w.repeat(2, 1, 1),
-        c1_sb=kw['stage1'].c1_sb.repeat(2, 1, 1),
-        c2_w=kw['stage1'].c2_w.repeat(2, 1, 1, 1, 1),
-        c2_sb=kw['stage1'].c2_sb.repeat(2, 1, 1))
-    xs = torch.zeros((32, 48, kw['stage1'].dims[0]), dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                      # no stream axis
+        stage2_cuda.stage_csp(x[0].to(torch.bfloat16), kw['stage2'])
+    w1 = kw['stage1'].wts
+    bad = stage2_cuda.pack_stage(w1._replace(
+        c1_w=w1.c1_w.repeat(2, 1, 1), c1_sb=w1.c1_sb.repeat(2, 1, 1),
+        c2_w=w1.c2_w.repeat(2, 1, 1, 1, 1), c2_sb=w1.c2_sb.repeat(2, 1, 1)))
+    xs = torch.zeros((1, 32, 48, w1.dims[0]), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match='num_blocks'):
         stage1_cuda.stage1_dual(xs, xs, bad, bad)        # two blocks
     with pytest.raises(ValueError):
-        stem_cuda.focus_stem(torch.zeros((H, W), dtype=torch.uint8),
+        stem_cuda.focus_stem(torch.zeros((1, H, W), dtype=torch.uint8),
                              *kw['stem'], H, W)          # 2-D image

@@ -43,7 +43,7 @@ def test_track_raw_matches_jax_over_frames():
     variables = random_variables(seed=1, head_bias=3.0)
     jm = j_build_model(_cfg(), variables=variables, input_shape=(H, W))
     assert jm.cfg.reuse_det_depth is False and jm.cfg.stem_backend == 'xla'
-    tm = build_model(_cfg())
+    tm = build_model(_cfg(), device='cpu')
     assert tm.cfg.reuse_det_depth is False
     assert tm.cfg.backbone_backend == 'torch'
     from stereotracking_tpu_torch.utils.convert import flax_to_state_dict
@@ -79,7 +79,8 @@ def test_track_equals_track_raw():
     are one path: identical results."""
     from stereotracking_tpu_torch.models.preprocessor import (
         padded_shape, preprocess_frame_pure)
-    a, b = build_model(_cfg()), build_model(_cfg())
+    a, b = (build_model(_cfg(), device='cpu'),
+            build_model(_cfg(), device='cpu'))
     img, disp = random_frame(12, 60, 90)
     oh, ow = padded_shape(60, 90)
     for f in range(2):

@@ -102,7 +102,9 @@ def test_reuse_det_depth_is_set_explicitly():
     cfg = load_config(
         'configs/stereo_tracking/ocsort/yolox_s_airdrone_disp.py')
     assert cfg['model']['reuse_det_depth'] is False
-    assert build_mot_config(cfg['model']).reuse_det_depth is False
+    assert build_mot_config(cfg['model'],
+                            device='cpu').reuse_det_depth is False
     assert j_build_cfg(cfg['model']).reuse_det_depth is False
     cfg['model']['reuse_det_depth'] = True
-    assert build_mot_config(cfg['model']).reuse_det_depth is True
+    assert build_mot_config(cfg['model'],
+                            device='cpu').reuse_det_depth is True
