@@ -10,13 +10,16 @@ Phases, in order; any failure exits non-zero:
    reference computations;
 2. build: compiles the CUDA kernels from ``stereotracking_tpu_torch/csrc``
    (one nvcc per source, all at once, sm_90a) and prints the build time;
+   compiles the tensor-core stem and stage-2 sources once more with
+   ``-Xptxas -v`` and prints their registers, shared memory and spills;
 3. kernels: each kernel against its plain PyTorch version on the same
    inputs, at one stream and at 8 streams of 1080x1920 raw frames padded to
    1088x1920, with the tolerance stated beside each check; kernel, plain
    version and (where one PyTorch call computes the same function) that
    call timed with CUDA events; each kernel's bound from its bytes and
-   operations; the float32 stage-3 modules (TF32 off) timed beside the
-   stage-3 kernel;
+   operations; for the stem and stage 2 the achieved TFLOP/s and share of
+   the bound, and stage 2's weight bytes read from L2 per region; the
+   float32 stage-3 modules (TF32 off) timed beside the stage-3 kernel;
 4. reference: on a small frame the kernel path's head outputs (stage 3
    through its kernel too) must agree with the float32 module path;
 5. slice: ``build_model(flagship config)`` on the card, ``track_raw`` over
@@ -41,6 +44,7 @@ from the probe run), then, as the last line, ``{"ok": true, "device":
 {...}}``.
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -77,6 +81,10 @@ KERNELS = {
     'stage1_variants': ('stereotracking_tpu_torch/csrc/stage1.cu',
                         'tools/probe_stage1_variants.py:153'),
 }
+
+# kernels redesigned for the H100's tensor cores: their achieved rate, share
+# of the bound and ptxas resource usage are printed too
+REDESIGNED = ('stem', 'stage2')
 
 
 class SmokeFailure(Exception):
@@ -196,7 +204,8 @@ def check_kernels(model, frames, device, iters=10):
     kw = model.module.backbone.kernel_weights()
     res = {}
 
-    def record(name, err, fn, plain, library=None, bound_ms=None):
+    def record(name, err, fn, plain, library=None, bound_ms=None,
+               ops=None):
         t, by = bound_ms
         res[name] = dict(max_abs_err=float(err), ms=time_ms(fn, iters),
                          plain_ms=time_ms(plain, iters), bound_ms=t,
@@ -209,21 +218,30 @@ def check_kernels(model, frames, device, iters=10):
         print(f'kernel {name} x{n}: max_abs_err {err:.6g}  kernel '
               f'{r["ms"]:.4f} ms  plain {r["plain_ms"]:.4f} ms  library '
               f'{lib}  bound {t:.4f} ms ({by})', flush=True)
+        if name in REDESIGNED:
+            r['tflops'] = ops / r['ms'] * 1e-9
+            r['bound_share'] = t / r['ms']
+            print(f'kernel {name} x{n}: {ops / 1e9:.2f} GFLOP in '
+                  f'{r["ms"]:.4f} ms = {r["tflops"]:.1f} TFLOP/s achieved, '
+                  f'{100 * r["bound_share"]:.1f}% of the bound', flush=True)
 
     # stem: the float32 sums differ by reassociation, at most
     # 2 * K * 2^-24 * sum|x * w| (K = 36 C taps, both sides), times |scale|;
-    # then one bf16 rounding, at most one ulp (2^-7 relative) apart
-    stems, err, ops = [], 0.0, 0
+    # then one bf16 rounding, at most one ulp (2^-7 relative) apart (the
+    # kernel's SiLU, within ~1e-6 of the plain one, moves it no further)
+    stems, err, ops, worst = [], 0.0, 0, 0.0
     xs = []
-    for frm, (w6, sb) in ((img, kw['stem']), (disp_u16, kw['disp_stem'])):
-        k = stem_cuda.focus_stem(frm, w6, sb, oh, ow)
-        p = stem_cuda.focus_stem_plain(frm, w6, sb, oh, ow).float()
-        require(k.shape == (n, oh // 2, ow // 2, w6.shape[-1]), 'stem shape')
+    for frm, (wk, sb) in ((img, kw['stem']), (disp_u16, kw['disp_stem'])):
+        k = stem_cuda.focus_stem(frm, wk, sb, oh, ow)
+        p = stem_cuda.focus_stem_plain(frm, wk, sb, oh, ow).float()
+        require(k.shape == (n, oh // 2, ow // 2, wk.shape[-1]), 'stem shape')
         x = F.pad(stem_cuda.stem_input(frm, oh, ow), (2, 3, 2, 3))
+        c = x.shape[1]
+        w6 = stem_cuda.stem_hwio(wk, c)
         xs.append((x, w6.permute(3, 2, 0, 1).contiguous()))
         mag = F.conv2d(x.abs(), w6.abs().permute(3, 2, 0, 1), stride=2)
         mag = mag.permute(0, 2, 3, 1) * sb[0].abs()
-        tol = 2 ** -7 * p.abs() + 2 * 36 * w6.shape[2] * 2 ** -24 * mag
+        tol = 2 ** -7 * p.abs() + 2 * 36 * c * 2 ** -24 * mag
         d = (k.float() - p).abs()
         bad = d > tol
         require(not bool(bad.any()),
@@ -231,9 +249,12 @@ def check_kernels(model, frames, device, iters=10):
                 f'kernel {k.float()[bad][:4].tolist()} plain '
                 f'{p[bad][:4].tolist()} tol {tol[bad][:4].tolist()}')
         err = max(err, float(d.max()))
-        ops += 2 * k.numel() * 36 * w6.shape[2]
+        worst = max(worst, float((d / tol.clamp_min(1e-30)).max()))
+        ops += 2 * k.numel() * 36 * c
         stems.append(k)
     del mag, tol, d, bad, p
+    print(f'stem x{n}: largest |kernel - plain| / tolerance {worst:.4f}',
+          flush=True)
     record('stem', err,
            lambda: (stem_cuda.focus_stem(img, *kw['stem'], oh, ow),
                     stem_cuda.focus_stem(disp_u16, *kw['disp_stem'], oh,
@@ -244,7 +265,8 @@ def check_kernels(model, frames, device, iters=10):
            library=lambda: [F.conv2d(x, w, stride=2) for x, w in xs],
            # the weights hold bf16 values and the inputs (0-255, bf16 of
            # disp / 16) are exact in bf16: the tensor cores' bf16 rate
-           bound_ms=bound(nbytes(img, disp_u16, *stems), ops, PEAK_BF16))
+           bound_ms=bound(nbytes(img, disp_u16, *stems), ops, PEAK_BF16),
+           ops=ops)
     del xs
 
     # stages: bf16 chains whose roundings may flip by one ulp and carry on,
@@ -261,7 +283,7 @@ def check_kernels(model, frames, device, iters=10):
         ops = n * sum(stage_ops(kk, k.shape[1], k.shape[2]) for kk in ks)
         weights = sum(nbytes(kk.w, kk.sb) for kk in ks)
         record(name, err, fn, plain, bound_ms=bound(
-            nbytes(*ins, k) + weights, ops, PEAK_BF16))
+            nbytes(*ins, k) + weights, ops, PEAK_BF16), ops=ops)
         return k
 
     k1, kd1 = kw['stage1'], kw['disp_stage1']
@@ -269,9 +291,20 @@ def check_kernels(model, frames, device, iters=10):
         'stage1', lambda: stage1_cuda.stage1_dual(*stems, k1, kd1),
         lambda: stage1_cuda.stage1_dual_plain(*stems, k1, kd1), stems,
         [k1, kd1])
-    y2 = stage_check('stage2', lambda: stage2_cuda.stage_csp(y1, kw['stage2']),
-                     lambda: stage2_cuda.stage_csp_plain(y1, kw['stage2']),
-                     [y1], [kw['stage2']])
+    k2 = kw['stage2']
+    y2 = stage_check('stage2', lambda: stage2_cuda.stage_csp(y1, k2),
+                     lambda: stage2_cuda.stage_csp_plain(y1, k2),
+                     [y1], [k2])
+    # weight bytes that leave L2 per 16 x 16 region: wmma B fragments
+    # loaded from device memory per m tile read the whole (K, N) matrix of
+    # each GEMM 16 times per region, the ring reads each slice once
+    regions = n * math.ceil(y2.shape[1] / 10) * math.ceil(y2.shape[2] / 10)
+    before, after = 16 * nbytes(k2.w), nbytes(k2.ws)
+    print(f'stage2 x{n}: {regions} regions; L2 weight reads per region '
+          f'{before / 1e6:.2f} MB (per-tile wmma loads) -> '
+          f'{after / 1e6:.2f} MB '
+          f'(slice ring); per call {regions * before / 1e9:.2f} GB -> '
+          f'{regions * after / 1e9:.2f} GB', flush=True)
     stage_check('stage3', lambda: stage3_cuda.stage3_csp(y2, kw['stage3']),
                 lambda: stage3_cuda.stage3_csp_plain(y2, kw['stage3']),
                 [y2], [kw['stage3']])
@@ -558,6 +591,10 @@ def main():
     _kernels.library()
     print(f'build: {path.name} in {time.perf_counter() - t0:.1f} s '
           f'(nvcc {_kernels.build_seconds})', flush=True)
+    for name, lines in _kernels.ptxas_usage(
+            [KERNELS[k][0] for k in REDESIGNED]).items():
+        for line in lines:
+            print(f'ptxas {name}: {line}', flush=True)
 
     model = build_flagship(device)
     streams = [make_frames(1, FRAME_H, FRAME_W, 100 + s)[0]

@@ -132,6 +132,30 @@ def build() -> Path:
     return out
 
 
+def ptxas_usage(sources) -> Dict[str, list]:
+    """Compile the named sources (file names under ``csrc/``, or paths
+    ending in them) once more with ``-Xptxas -v``, all at once, and return
+    each one's ptxas lines on entry functions, registers, shared memory and
+    spills."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    names = [Path(s).name for s in sources]
+    objs = [BUILD_DIR / f'ptxas.{os.getpid()}.{Path(n).stem}.o' for n in names]
+    procs = [subprocess.Popen(
+        [_nvcc(), *NVCC_FLAGS, '-Xptxas', '-v', '-c', '-o', str(o),
+         str(CSRC / n)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for n, o in zip(names, objs)]
+    out = {}
+    for n, o, p in zip(names, objs, procs):
+        log = p.communicate()[0]
+        o.unlink(missing_ok=True)
+        if p.returncode != 0:
+            raise RuntimeError(f'nvcc -Xptxas -v {n} failed:\n{log}')
+        out[n] = [line.strip() for line in log.splitlines()
+                  if any(k in line for k in ('Compiling entry', 'registers',
+                                             'spill'))]
+    return out
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib

@@ -9,11 +9,14 @@ final 1x1 on [blocks | short].  Each ConvBNAct accumulates in float32,
 applies folded BatchNorm and SiLU in float32 and rounds to bfloat16 once;
 the residual sum rounds to bfloat16 as well.
 
-The kernel is generic over (C_in, C_out, num_blocks) as long as its shared
-memory fits: the flagship's stage 2 is (64, 128, 3); stage 3 (128, 256, 3)
-runs the two-launch kernel of ``ops/stage3_cuda.py`` on the same weights
-layout.  Input and output are canonical NHWC bf16 with a leading stream
-axis, one launch for all S streams: (S, H, W, C_in) -> (S, H/2, W/2, C_out).
+The stage-2 kernel (``csrc/stage2.cu``) is built for YOLOX's stage-2
+shape, C_in = mid = C_out / 2, at C_in 32 or 64 (the flagship's stage 2 is
+(64, 128, 3 blocks)); it reads the weights as 64 x 64 slices in its run
+order (``pack_slices``).  Stage 1 and stage 3 (128, 256, 3) run their own
+kernels (``ops/stage1_cuda.py``, ``ops/stage3_cuda.py``) on the flat
+layout of ``pack_stage``.  Input and output are canonical NHWC bf16 with a
+leading stream axis, one launch for all S streams: (S, H, W, C_in) ->
+(S, H/2, W/2, C_out).
 """
 from __future__ import annotations
 
@@ -50,12 +53,13 @@ class StageWeights(NamedTuple):
 
 class StageKernel(NamedTuple):
     """A stage's weights as both versions take them: ``wts`` for the plain
-    version, and the same values packed once into the two buffers the CUDA
+    version, and the same values packed once into the buffers the CUDA
     kernels read (``CSPDarknetDual.kernel_weights`` rebuilds them only when
     a parameter changes)."""
     wts: StageWeights
     w: torch.Tensor          # bf16, the fields in weight_ptrs order
     sb: torch.Tensor         # float32 [scale; bias] blocks, same order
+    ws: torch.Tensor         # bf16 slices in the stage-2 kernel's order
 
     @property
     def dims(self):
@@ -68,15 +72,50 @@ class StageKernel(NamedTuple):
                              f'{self.dims}')
 
 
+SLICE = 64   # a weight slice of the stage-2 kernel: SLICE k x SLICE n
+STAGE_CSP_WIDTHS = (32, 64)   # C_in the stage-2 kernel is built for
+
+
+def _gemm_mats(wts: StageWeights):
+    """The chain's GEMM weights as (K, N) matrices, in the order the
+    stage-2 kernel runs them: entry, main|short, per block conv1 then
+    conv2, final."""
+    cin, cout, mid, nb = wts.dims
+    mats = [wts.entry_w.reshape(9 * cin, cout), wts.ms_w]
+    for b in range(nb):
+        mats += [wts.c1_w[b], wts.c2_w[b].reshape(9 * mid, mid)]
+    return mats + [wts.fin_w]
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def pack_slices(wts: StageWeights) -> torch.Tensor:
+    """(slices, SLICE, SLICE) bf16: each GEMM's (K, N) matrix zero-padded
+    to multiples of SLICE and cut into tiles, N passes outer, K slices
+    inner, GEMMs in run order: the stream the stage-2 kernel copies into
+    its shared-memory ring (csrc/mma_chain.cuh)."""
+    tiles = []
+    for m in _gemm_mats(wts):
+        k, n = m.shape
+        kp, np_ = _cdiv(k, SLICE), _cdiv(n, SLICE)
+        m = F.pad(m, (0, np_ * SLICE - n, 0, kp * SLICE - k))
+        tiles.append(m.reshape(kp, SLICE, np_, SLICE).permute(2, 0, 1, 3)
+                     .reshape(-1, SLICE, SLICE))
+    return torch.cat(tiles).to(torch.bfloat16).contiguous()
+
+
 def pack_stage(wts: StageWeights) -> StageKernel:
     """The fields in the order the kernels' ``weight_ptrs``
-    (csrc/csp_chain.cuh) reads them: bf16 weights, float32 scale/bias."""
+    (csrc/csp_chain.cuh) reads them: bf16 weights, float32 scale/bias; and
+    the weights once more as the stage-2 kernel's slices."""
     w = torch.cat([t.reshape(-1) for t in (
         wts.entry_w, wts.ms_w, wts.c1_w, wts.c2_w, wts.fin_w)])
     sb = torch.cat([t.reshape(-1) for t in (
         wts.entry_sb, wts.ms_sb, wts.c1_sb, wts.c2_sb, wts.fin_sb)])
     return StageKernel(wts, w.to(torch.bfloat16).contiguous(),
-                       sb.contiguous())
+                       sb.contiguous(), pack_slices(wts))
 
 
 def _bf16(w: torch.Tensor) -> torch.Tensor:
@@ -161,18 +200,21 @@ def stage_csp_plain(x: torch.Tensor, k: StageKernel) -> torch.Tensor:
 
 
 def launch_stage(entry: str, counter: str, x: torch.Tensor, k: StageKernel,
-                 *scratch: torch.Tensor) -> torch.Tensor:
+                 *scratch: torch.Tensor, w: torch.Tensor = None
+                 ) -> torch.Tensor:
     """Launch the stage kernel ``entry`` of the library on (S, H, W, C_in)
     CUDA ``x`` (``scratch``: extra device buffers it takes before the
-    output) and add one to the launch count ``counter``."""
+    output; ``w``: the weight buffer it reads, ``k.w`` by default) and add
+    one to the launch count ``counter``."""
     cin, cout, mid, nb = k.dims
     k.check_kernel_dims(counter)
-    _kernels.require_cuda(counter, x, k.w, k.sb, *scratch)
+    w = k.w if w is None else w
+    _kernels.require_cuda(counter, x, w, k.sb, *scratch)
     n, h, wd = x.shape[:3]
     out = torch.empty((n, h // 2, wd // 2, cout), dtype=torch.bfloat16,
                       device=x.device)
     status = getattr(_kernels.library(), entry)(
-        x.data_ptr(), n, h, wd, cin, cout, mid, nb, k.w.data_ptr(),
+        x.data_ptr(), n, h, wd, cin, cout, mid, nb, w.data_ptr(),
         k.sb.data_ptr(), *(t.data_ptr() for t in scratch), out.data_ptr(),
         _kernels.stream_ptr(x))
     _kernels.check(status, counter)
@@ -188,4 +230,11 @@ def stage_csp(x: torch.Tensor, k: StageKernel) -> torch.Tensor:
     check_stage_input('stage_csp', x, k)
     if x.device.type == 'cpu':
         return stage_csp_plain(x, k)
-    return launch_stage('st_stage_csp', 'stage2', x, k)
+    cin, cout, mid, _ = k.dims
+    if cin not in STAGE_CSP_WIDTHS or mid != cin or cout != 2 * cin:
+        raise ValueError(f'stage_csp: the kernel is built for C_in = mid = '
+                         f'C_out / 2 in {STAGE_CSP_WIDTHS}, got {k.dims}')
+    if x.data_ptr() % 16:
+        raise ValueError('stage_csp: the input must start on a 16-byte '
+                         'boundary (the kernel copies 16-byte chunks)')
+    return launch_stage('st_stage_csp', 'stage2', x, k, w=k.ws)

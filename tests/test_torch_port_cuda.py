@@ -73,6 +73,46 @@ def test_stem_kernel(frames, kw):
     assert _kernels.launch_counts()['stem'] == before + 2
 
 
+def _stem_tol(frame, wk, sb, p, oh, ow):
+    """One bf16 ulp after BN + SiLU, plus the float32 reassociation bound
+    2 K 2^-24 sum|x w| |scale| of the two sums (K = 36 C)."""
+    x = torch.nn.functional.pad(stem_cuda.stem_input(frame, oh, ow),
+                                (2, 3, 2, 3))
+    c = x.shape[1]
+    w6 = stem_cuda.stem_hwio(wk, c)
+    mag = torch.nn.functional.conv2d(x.abs(), w6.abs().permute(3, 2, 0, 1),
+                                     stride=2).permute(0, 2, 3, 1)
+    return 2 ** -7 * p.abs() + 2 * 36 * c * 2 ** -24 * mag * sb[0].abs()
+
+
+@pytest.mark.parametrize('o', stem_cuda.STEM_WIDTHS)
+@pytest.mark.parametrize('size', [(90, 150, 96, 160), (200, 330, 208, 336)])
+def test_stem_kernel_widths_ragged(dev, o, size):
+    """Every width the kernel is built for, S = 3 frames whose output is
+    not a multiple of the 16 x 32 tile (48 x 80, 104 x 168), both
+    branches."""
+    h, w, oh, ow = size
+    g = torch.Generator().manual_seed(o + h)
+    img = torch.randint(0, 256, (S, h, w, 3), generator=g,
+                        dtype=torch.uint8).to(dev)
+    disp = torch.randint(0, 65535, (S, h, w), generator=g, dtype=torch.int32)
+    disp[:, ::3] = 65535
+    disp = disp.to(dev).to(torch.uint16)
+    for frame, c in ((img, 3), (disp, 1)):
+        w6 = (torch.randn((6, 6, c, o), generator=g) * 0.05).to(
+            torch.bfloat16).float()
+        wk = stem_cuda.stem_matrix(w6).to(dev)
+        sb = torch.stack([torch.rand((o,), generator=g) + 0.5,
+                          torch.randn((o,), generator=g)]).to(dev)
+        k = stem_cuda.focus_stem(frame, wk, sb, oh, ow)
+        p = stem_cuda.focus_stem_plain(frame, wk, sb, oh, ow).float()
+        assert k.shape == p.shape == (S, oh // 2, ow // 2, o)
+        tol = _stem_tol(frame, wk, sb, p, oh, ow)
+        assert ((k.float() - p).abs() <= tol).all()
+        assert torch.equal(k[1:2], stem_cuda.focus_stem(frame[1:2], wk, sb,
+                                                        oh, ow))
+
+
 def _stage_close(k, p):
     assert k.shape == p.shape and k.dtype == torch.bfloat16
     scale = float(p.float().abs().max())
@@ -90,6 +130,24 @@ def test_stage_kernels(frames, kw):
     for s in range(S):
         assert torch.equal(y2[s:s + 1],
                            stage2_cuda.stage_csp(y1[s:s + 1], kw['stage2']))
+
+
+@pytest.mark.parametrize('hw', [(23, 37), (24, 40), (34, 60)])
+def test_stage2_kernel_ragged(dev, kw, hw):
+    """Stage 2 at full width (64 -> 128, 3 blocks) on S = 3 streams whose
+    output is not a multiple of the 10 x 10 tile, counted once per call;
+    each stream of the batch equals its own launch."""
+    g = torch.Generator().manual_seed(3)
+    x = (torch.randn((S, 2 * hw[0], 2 * hw[1], 64), generator=g) * 0.8).to(
+        torch.bfloat16).to(dev)
+    before = _kernels.launch_counts()['stage2']
+    y = stage2_cuda.stage_csp(x, kw['stage2'])
+    assert _kernels.launch_counts()['stage2'] == before + 1
+    assert y.shape == (S, hw[0], hw[1], 128)
+    _stage_close(y, stage2_cuda.stage_csp_plain(x, kw['stage2']))
+    for s in range(S):
+        assert torch.equal(y[s:s + 1],
+                           stage2_cuda.stage_csp(x[s:s + 1], kw['stage2']))
 
 
 @pytest.mark.parametrize('hw', [(24, 40), (34, 60)])

@@ -87,7 +87,8 @@ def test_stem_rounds_disparity_input_to_bf16(world):
     unrounded float32 input does not."""
     disp = np.full((H, W), 16 * 257, np.uint16)
     disp[::3] = 16 * 385
-    w6, sb = world['kw']['disp_stem']
+    wk, sb = world['kw']['disp_stem']
+    w6 = stem_cuda.stem_hwio(wk, 1)
     v = world['v']
     _, dso = pallas_stem_outputs(
         v['params']['backbone'], v['batch_stats']['backbone'],
@@ -95,7 +96,7 @@ def test_stem_rounds_disparity_input_to_bf16(world):
         stem_pack_disp_device(jnp.asarray(disp), H, W), W // 4,
         interpret=True)
     ref = _d2s(dso)
-    out = stem_cuda.focus_stem(torch.from_numpy(disp)[None], w6, sb, H, W)
+    out = stem_cuda.focus_stem(torch.from_numpy(disp)[None], wk, sb, H, W)
     out = out[0].float().numpy()
     assert not _beyond_ulp(out, ref).any()
     x = torch.nn.functional.pad(
