@@ -10,16 +10,19 @@ Phases, in order; any failure exits non-zero:
    reference computations;
 2. build: compiles the CUDA kernels from ``stereotracking_tpu_torch/csrc``
    (one nvcc per source, all at once, sm_90a) and prints the build time;
-   compiles the tensor-core stem and stage-2 sources once more with
-   ``-Xptxas -v`` and prints their registers, shared memory and spills;
+   compiles the sources of the kernels redesigned for the tensor cores (the
+   stem, stages 1-3) once more with ``-Xptxas -v`` and prints their
+   registers, shared memory and spills;
 3. kernels: each kernel against its plain PyTorch version on the same
    inputs, at one stream and at 8 streams of 1080x1920 raw frames padded to
    1088x1920, with the tolerance stated beside each check; kernel, plain
    version and (where one PyTorch call computes the same function) that
    call timed with CUDA events; each kernel's bound from its bytes and
-   operations; for the stem and stage 2 the achieved TFLOP/s and share of
-   the bound, and stage 2's weight bytes read from L2 per region; the
-   float32 stage-3 modules (TF32 off) timed beside the stage-3 kernel;
+   operations; for the stem and stages 1-3 the achieved TFLOP/s and share
+   of the bound, and for stages 1-3 the weight bytes read from L2 per
+   region before (wmma B fragments from device memory) and after (the
+   slice ring); the float32 stage-3 modules (TF32 off) timed beside the
+   stage-3 kernel;
 4. reference: on a small frame the kernel path's head outputs (stage 3
    through its kernel too) must agree with the float32 module path;
 5. slice: ``build_model(flagship config)`` on the card, ``track_raw`` over
@@ -32,8 +35,9 @@ Phases, in order; any failure exits non-zero:
    host syncs per step no more than the single-stream frame's; stream 0
    over the first 3 steps equal to a single-stream run of its frames (ids
    and validity exact, boxes within 1e-2 px);
-7. probe: the stage-1 kernel's four variants at 8 streams, each held to
-   the plain version and timed (``tools/probe_stage1_variants.py``).
+7. probe: the stage-1 kernel's six variants at 8 streams, each held to
+   the plain version and timed (``tools/probe_stage1_variants.py``), the
+   production one beside the wmma 16x16 region it replaced.
 
 ``--profile`` adds a ``torch.profiler`` window over two multi-stream steps
 and prints the device time by kernel.
@@ -84,7 +88,7 @@ KERNELS = {
 
 # kernels redesigned for the H100's tensor cores: their achieved rate, share
 # of the bound and ptxas resource usage are printed too
-REDESIGNED = ('stem', 'stage2')
+REDESIGNED = ('stem', 'stage1', 'stage2', 'stage3')
 
 
 class SmokeFailure(Exception):
@@ -185,6 +189,50 @@ def depth_boxes(device):
         x, y = 37 * i % 1800, 540 + 13 * i % 500
         b.append([x, y, x + 8 + 3 * i, y + 6 + 2 * i])
     return torch.tensor(b, dtype=torch.float32, device=device)
+
+
+# L2 weight reads per call, (regions, bytes before, bytes after), at output
+# (hout, wout) per stream.  Before: the wmma chain of csp_chain.cuh loads
+# every GEMM's whole (K, N) matrix from device memory once per m tile (16
+# pixels) of the region; after: the slice ring reads each slice once per
+# region (mma_chain.cuh).
+def _tiles(hout, wout, th, tw):
+    return math.ceil(hout / th) * math.ceil(wout / tw)
+
+
+def l2_stage1(k1, kd1, out_hw):
+    """Both branches; before: the 16 x 16 wmma region (16 m tiles, 14 x 14
+    tile), after: the production region."""
+    from stereotracking_tpu_torch.ops.stage1_cuda import PRODUCTION
+    gh = 16 if PRODUCTION.startswith('r16') else 8
+    old = _tiles(*out_hw, 14, 14)
+    new = _tiles(*out_hw, gh - 2, 14)
+    return (new, old * 16 * nbytes(k1.w, kd1.w), new * nbytes(k1.ws, kd1.ws))
+
+
+def l2_stage2(k2, out_hw):
+    r = _tiles(*out_hw, 10, 10)
+    return r, r * 16 * nbytes(k2.w), r * nbytes(k2.ws)
+
+
+def l2_stage3(k3, out_hw):
+    """Launch A: 8 x 16 tiles, 8 m tiles, the entry conv and main|short;
+    launch B: 16 x 16 regions (10 x 10 tiles), 16 m tiles, the rest."""
+    from stereotracking_tpu_torch.ops.stage2_cuda import (CHAIN_GEMM,
+                                                          slice_offsets)
+    cin, cout, mid, _ = k3.dims
+    a, b = _tiles(*out_hw, 8, 16), _tiles(*out_hw, 10, 10)
+    flat_a = 2 * (9 * cin * cout + cout * 2 * mid)
+    split = slice_offsets(k3.dims)[CHAIN_GEMM]
+    slice_b = nbytes(k3.ws) // k3.ws.shape[0]
+    return (a + b, a * 8 * flat_a + b * 16 * (nbytes(k3.w) - flat_a),
+            a * split * slice_b + b * (nbytes(k3.ws) - split * slice_b))
+
+
+def weight_reads(n, name, regions, before, after):
+    print(f'{name} x{n}: {n * regions} regions; L2 weight reads per call '
+          f'{n * before / 1e9:.2f} GB (per-tile wmma loads) -> '
+          f'{n * after / 1e9:.2f} GB (slice ring)', flush=True)
 
 
 def check_kernels(model, frames, device, iters=10):
@@ -295,19 +343,13 @@ def check_kernels(model, frames, device, iters=10):
     y2 = stage_check('stage2', lambda: stage2_cuda.stage_csp(y1, k2),
                      lambda: stage2_cuda.stage_csp_plain(y1, k2),
                      [y1], [k2])
-    # weight bytes that leave L2 per 16 x 16 region: wmma B fragments
-    # loaded from device memory per m tile read the whole (K, N) matrix of
-    # each GEMM 16 times per region, the ring reads each slice once
-    regions = n * math.ceil(y2.shape[1] / 10) * math.ceil(y2.shape[2] / 10)
-    before, after = 16 * nbytes(k2.w), nbytes(k2.ws)
-    print(f'stage2 x{n}: {regions} regions; L2 weight reads per region '
-          f'{before / 1e6:.2f} MB (per-tile wmma loads) -> '
-          f'{after / 1e6:.2f} MB '
-          f'(slice ring); per call {regions * before / 1e9:.2f} GB -> '
-          f'{regions * after / 1e9:.2f} GB', flush=True)
-    stage_check('stage3', lambda: stage3_cuda.stage3_csp(y2, kw['stage3']),
-                lambda: stage3_cuda.stage3_csp_plain(y2, kw['stage3']),
-                [y2], [kw['stage3']])
+    weight_reads(n, 'stage1', *l2_stage1(k1, kd1, y1.shape[1:3]))
+    weight_reads(n, 'stage2', *l2_stage2(k2, y2.shape[1:3]))
+    y3 = stage_check(
+        'stage3', lambda: stage3_cuda.stage3_csp(y2, kw['stage3']),
+        lambda: stage3_cuda.stage3_csp_plain(y2, kw['stage3']), [y2],
+        [kw['stage3']])
+    weight_reads(n, 'stage3', *l2_stage3(kw['stage3'], y3.shape[1:3]))
     y2f = y2.float().permute(0, 3, 1, 2).contiguous()
     with torch.no_grad():
         mod_ms = time_ms(lambda: model.module.backbone.stage3(y2f), iters)
@@ -545,7 +587,7 @@ def profile_steps(ms, steps):
     total = sum(r[0] for r in rows if not r[2].startswith('aten::'))
     print(f'profile: device time over 2 steps by kernel (us); kernel sum '
           f'{total:.0f} us', flush=True)
-    for us, cnt, key in rows[:25]:
+    for us, cnt, key in rows[:40]:
         print(f'profile: {us:12.1f} us {cnt:6d}x {key[:90]}', flush=True)
 
 
@@ -561,6 +603,11 @@ def run_probe():
     print('probe: ' + json.dumps({k: out[k] for k in sorted(out)}),
           flush=True)
     require(launches > 0, 'probe: no variant launched')
+    print(f'probe: production {PRODUCTION} {out[f"{PRODUCTION}_ms"]:.4f} ms '
+          f'vs the wmma 16x16 region it replaced '
+          f'{out["r16x16_wmma_ms"]:.4f} ms: '
+          f'{out["r16x16_wmma_ms"] / out[f"{PRODUCTION}_ms"]:.2f}x',
+          flush=True)
     return launches, out, PRODUCTION
 
 
@@ -592,7 +639,7 @@ def main():
     print(f'build: {path.name} in {time.perf_counter() - t0:.1f} s '
           f'(nvcc {_kernels.build_seconds})', flush=True)
     for name, lines in _kernels.ptxas_usage(
-            [KERNELS[k][0] for k in REDESIGNED]).items():
+            sorted({KERNELS[k][0] for k in REDESIGNED})).items():
         for line in lines:
             print(f'ptxas {name}: {line}', flush=True)
 

@@ -47,8 +47,9 @@ _SIGNATURES = {
                        _P, _I, _P),
     # x, n, h, w, cin, cout, mid, nb, weights, sb, out, stream
     'st_stage_csp': (_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
-    # x, n, h, w, cin, cout, mid, nb, weights, sb, ms scratch, out, stream
-    'st_stage3': (_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    # x, n, h, w, cin, cout, mid, nb, weights, sb, b_slice, ms scratch,
+    # out, stream
+    'st_stage3': (_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P),
     # disp (n maps), h, w, scal, nbox, crop, bf, out, stream
     'st_box_depth_stats': (_P, _I, _I, _P, _I, _I, _F, _P, _P),
 }

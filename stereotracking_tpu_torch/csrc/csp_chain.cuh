@@ -1,7 +1,9 @@
 // One CSPDarknet stage evaluated for one GH x 16 region, every intermediate
-// in shared memory.  Used by the dual stage-1 kernel (stage1.cu), the
-// generic stage kernel (stage2.cu) and the two-launch stage-3 kernel
-// (stage3.cu).
+// in shared memory, on wmma or scalar FMA GEMMs whose B fragments come
+// straight from device memory.  The stage-1 probe's wmma and FMA variants
+// (stage1.cu) run it; the production stage kernels run mma_chain.cuh, which
+// computes the same chain with the same halo scheme and rounding points and
+// takes the weight and dimension structs below.
 //
 // Stage: z = ConvBNAct 3x3 stride 2 (C_in -> C_out); main / short = ConvBNAct
 // 1x1 (C_out -> mid, mid = C_out / 2); nb bottlenecks
@@ -178,21 +180,20 @@ __device__ __forceinline__ void gemm(int m_tiles, int n_tiles, int k_steps,
   }
 }
 
-// Copies rows [0, rows) x columns [0, 16) x channels [c0, c0 + c) of the
-// NHWC map src (h, w, ctot) starting at pixel (y0, x0) into dst, pixel-major
-// with c channels per pixel, 16-byte chunks; zeros outside the map.
-template <int GWIDTH>
-__device__ inline void load_region(const bf16* __restrict__ src, int h, int w,
-                                   int ctot, int c0, int c, int y0, int x0,
-                                   int rows, bf16* dst) {
+// Copies the IH x IW x c input patch of the NHWC map src (h, w, c) from
+// pixel (y0, x0) into dst, pixel-major, 16-byte chunks; zeros outside the
+// map.
+template <int GH>
+__device__ inline void load_patch(const bf16* __restrict__ src, int h, int w,
+                                  int c, int y0, int x0, bf16* dst) {
+  using G = Geom<GH>;
   const int c8 = c / 8;
-  for (int i = threadIdx.x; i < rows * GWIDTH * c8; i += THREADS) {
+  for (int i = threadIdx.x; i < G::IH * G::IW * c8; i += THREADS) {
     const int cc = (i % c8) * 8, p = i / c8;
-    const int y = y0 + p / GWIDTH, x = x0 + p % GWIDTH;
+    const int y = y0 + p / G::IW, x = x0 + p % G::IW;
     uint4 v = make_uint4(0, 0, 0, 0);
     if (y >= 0 && y < h && x >= 0 && x < w)
-      v = *reinterpret_cast<const uint4*>(src + ((size_t)y * w + x) * ctot +
-                                          c0 + cc);
+      v = *reinterpret_cast<const uint4*>(src + ((size_t)y * w + x) * c + cc);
     *reinterpret_cast<uint4*>(dst + (size_t)p * c + cc) = v;
   }
 }
@@ -310,7 +311,6 @@ __device__ inline void region_chain(const bf16* __restrict__ x, int hin,
                                     StageDims d, const StageWeightPtrs& w,
                                     int oy0, int ox0, unsigned char* smem,
                                     const Layout& L, bf16* result) {
-  using G = Geom<GH>;
   const int mid = d.mid, cout = d.cout;
   bf16* in = reinterpret_cast<bf16*>(smem + L.in);
   bf16* z = reinterpret_cast<bf16*>(smem + L.z);
@@ -321,8 +321,7 @@ __device__ inline void region_chain(const bf16* __restrict__ x, int hin,
   float* scratch = reinterpret_cast<float*>(smem + L.scratch) +
                    (threadIdx.x >> 5) * 256;
 
-  load_region<G::IW>(x, hin, win, d.cin, 0, d.cin, 2 * oy0 - 1, 2 * ox0 - 1,
-                     G::IH, in);
+  load_patch<GH>(x, hin, win, d.cin, 2 * oy0 - 1, 2 * ox0 - 1, in);
   __syncthreads();
   entry_conv<GH, INNER>(in, d, w, z, scratch);
   main_short<GH, INNER>(z, d, w, scratch, [&](int p, int n, bf16 v) {
@@ -333,23 +332,6 @@ __device__ inline void region_chain(const bf16* __restrict__ x, int hin,
   final_conv<GH, INNER>(m, s, d, w, scratch, [&](int p, int n, bf16 v) {
     result[p * cout + n] = v;
   });
-}
-
-// Copies the centre tile (th x tw, e rings in) of a P x c region result to
-// the NHWC output (hout, wout, c) at (oy0, ox0), 16-byte chunks, clipped.
-__device__ inline void store_tile(const bf16* result, int e, int th, int tw,
-                                  int c, int oy0, int ox0, int hout,
-                                  int wout, bf16* __restrict__ out) {
-  const int c8 = c / 8;
-  for (int i = threadIdx.x; i < th * tw * c8; i += THREADS) {
-    const int cc = (i % c8) * 8, p = i / c8;
-    const int ty = p / tw, tx = p % tw;
-    const int y = oy0 + ty, xx = ox0 + tx;
-    if (y < hout && xx < wout)
-      *reinterpret_cast<uint4*>(out + ((size_t)y * wout + xx) * c + cc) =
-          *reinterpret_cast<const uint4*>(
-              result + ((ty + e) * GW + tx + e) * c + cc);
-  }
 }
 
 }  // namespace st_chain

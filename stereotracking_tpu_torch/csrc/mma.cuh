@@ -1,6 +1,7 @@
 // Warp-level tensor-core and copy primitives (inline PTX, sm_80+): the
 // bf16 m16n8k16 product with float32 accumulation, ldmatrix, cp.async.
-// Used by the stem (stem.cu) and the stage-2 chain (mma_chain.cuh).
+// Used by the stem (stem.cu) and the stage chain (mma_chain.cuh) of stages
+// 1-3.
 //
 // m16n8k16 fragments, g = lane / 4, t = lane % 4, two bf16 per register
 // (the lower k or column in the low half):

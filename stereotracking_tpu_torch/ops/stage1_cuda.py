@@ -12,8 +12,18 @@ the Pallas kernel.
 Input: the two stems' (S, H, W, C) bf16 NHWC activations; output
 (S, H/2, W/2, O) bf16 NHWC, one launch for the S streams.
 
-``VARIANTS`` are the kernel's template instantiations, region height x
-width and GEMM inner loop; ``PRODUCTION`` is the one the main path runs.
+``VARIANTS`` are the kernel's six template instantiations, region height
+x width and GEMM inner loop: ``r16x16_wmma``, ``r8x16_wmma`` (wmma bf16
+tensor cores, B fragments from device memory, ``csrc/csp_chain.cuh``),
+``r16x16_fma``, ``r8x16_fma`` (scalar float32 FMAs of the same operands),
+``r16x16_mma``, ``r8x16_mma`` (``mma.sync`` from swizzled shared memory,
+weights through a ``cp.async`` ring, ``csrc/mma_chain.cuh``; built for the
+flagship's C = 32 only).  ``PRODUCTION`` is the one the main path runs:
+``r8x16_mma``, the fastest on an H100 80GB HBM3 at 700 W at 8 streams of
+1080p (``chip_smoke.py``'s probe: 1.80 ms against 2.03 for ``r16x16_mma``,
+8.36 and 10.68 for the two wmma regions, 42-44 for the FMA ones); its
+two blocks per SM hide each other's per-slice barriers and weight copies,
+which outweighs its larger halo recompute (1.52x against 1.31x).
 ``stage1_dual_variant`` launches any of them (the probe,
 ``tools/probe_stage1_variants.py``) and counts under ``stage1_variants``.
 """
@@ -22,10 +32,13 @@ from __future__ import annotations
 import torch
 
 from .. import _kernels
-from .stage2_cuda import StageKernel, check_stage_input, nhwc_plain
+from .stage2_cuda import (StageKernel, check_aligned, check_chain_dims,
+                          check_stage_input, nhwc_plain)
 
-VARIANTS = ('r16x16_wmma', 'r8x16_wmma', 'r16x16_fma', 'r8x16_fma')
-PRODUCTION = 'r16x16_wmma'
+VARIANTS = ('r16x16_wmma', 'r8x16_wmma', 'r16x16_fma', 'r8x16_fma',
+            'r16x16_mma', 'r8x16_mma')
+PRODUCTION = 'r8x16_mma'
+MMA_WIDTHS = (32,)      # C the mma.sync variants are built for
 
 
 def _check(rgb, dsp, k_rgb: StageKernel, k_dsp: StageKernel):
@@ -52,14 +65,20 @@ def _launch(rgb, dsp, k_rgb: StageKernel, k_dsp: StageKernel, variant: str,
             counter: str) -> torch.Tensor:
     cin, cout, mid, nb = k_rgb.dims
     k_rgb.check_kernel_dims(counter)
-    _kernels.require_cuda(counter, rgb, dsp, k_rgb.w, k_rgb.sb, k_dsp.w,
+    if variant.endswith('_mma'):     # the packed slices of pack_slices
+        check_chain_dims(f'{counter} {variant}', k_rgb, MMA_WIDTHS)
+        check_aligned(f'{counter} {variant}', rgb, dsp)
+        w_rgb, w_dsp = k_rgb.ws, k_dsp.ws
+    else:                            # the flat layout of weight_ptrs
+        w_rgb, w_dsp = k_rgb.w, k_dsp.w
+    _kernels.require_cuda(counter, rgb, dsp, w_rgb, k_rgb.sb, w_dsp,
                           k_dsp.sb)
     n, h, w = rgb.shape[:3]
     out = torch.empty((n, h // 2, w // 2, cout), dtype=torch.bfloat16,
                       device=rgb.device)
     status = _kernels.library().st_stage1_dual(
         rgb.data_ptr(), dsp.data_ptr(), n, h, w, cin, cout, mid, nb,
-        k_rgb.w.data_ptr(), k_rgb.sb.data_ptr(), k_dsp.w.data_ptr(),
+        w_rgb.data_ptr(), k_rgb.sb.data_ptr(), w_dsp.data_ptr(),
         k_dsp.sb.data_ptr(), out.data_ptr(), VARIANTS.index(variant),
         _kernels.stream_ptr(rgb))
     _kernels.check(status, f'{counter} {variant}')

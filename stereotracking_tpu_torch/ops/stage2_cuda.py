@@ -13,10 +13,11 @@ The stage-2 kernel (``csrc/stage2.cu``) is built for YOLOX's stage-2
 shape, C_in = mid = C_out / 2, at C_in 32 or 64 (the flagship's stage 2 is
 (64, 128, 3 blocks)); it reads the weights as 64 x 64 slices in its run
 order (``pack_slices``).  Stage 1 and stage 3 (128, 256, 3) run their own
-kernels (``ops/stage1_cuda.py``, ``ops/stage3_cuda.py``) on the flat
-layout of ``pack_stage``.  Input and output are canonical NHWC bf16 with a
-leading stream axis, one launch for all S streams: (S, H, W, C_in) ->
-(S, H/2, W/2, C_out).
+kernels (``ops/stage1_cuda.py``, ``ops/stage3_cuda.py``) on the same
+slices (``slice_offsets`` says where each GEMM starts); the stage-1
+probe's wmma and FMA variants read the flat layout of ``pack_stage``.
+Input and output are canonical NHWC bf16 with a leading stream axis, one
+launch for all S streams: (S, H, W, C_in) -> (S, H/2, W/2, C_out).
 """
 from __future__ import annotations
 
@@ -76,10 +77,18 @@ SLICE = 64   # a weight slice of the stage-2 kernel: SLICE k x SLICE n
 STAGE_CSP_WIDTHS = (32, 64)   # C_in the stage-2 kernel is built for
 
 
+def gemm_shapes(dims):
+    """(K, N) of the chain's GEMMs for stage dims (C_in, C_out, mid,
+    num_blocks), in the order the kernels run them: entry, main|short, per
+    block conv1 then conv2, final."""
+    cin, cout, mid, nb = dims
+    return ([(9 * cin, cout), (cout, 2 * mid)]
+            + [(mid, mid), (9 * mid, mid)] * nb + [(2 * mid, cout)])
+
+
 def _gemm_mats(wts: StageWeights):
-    """The chain's GEMM weights as (K, N) matrices, in the order the
-    stage-2 kernel runs them: entry, main|short, per block conv1 then
-    conv2, final."""
+    """The chain's GEMM weights as (K, N) matrices, in ``gemm_shapes``
+    order."""
     cin, cout, mid, nb = wts.dims
     mats = [wts.entry_w.reshape(9 * cin, cout), wts.ms_w]
     for b in range(nb):
@@ -89,6 +98,21 @@ def _gemm_mats(wts: StageWeights):
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def slice_offsets(dims) -> list:
+    """Index of each GEMM's first slice in the ``pack_slices`` stream, in
+    ``gemm_shapes`` order, then the stream's length: the counts of
+    ``entry_slices`` and ``chain_slices`` in csrc/mma_chain.cuh.  Entry
+    ``CHAIN_GEMM`` (the first bottleneck's conv1) is where the chain part,
+    stage 3's second launch, starts."""
+    offs = [0]
+    for k, n in gemm_shapes(dims):
+        offs.append(offs[-1] + _cdiv(k, SLICE) * _cdiv(n, SLICE))
+    return offs
+
+
+CHAIN_GEMM = 2      # gemm_shapes index of the chain part's first GEMM
 
 
 def pack_slices(wts: StageWeights) -> torch.Tensor:
@@ -199,24 +223,39 @@ def stage_csp_plain(x: torch.Tensor, k: StageKernel) -> torch.Tensor:
     return nhwc_plain(x, k.wts).to(torch.bfloat16).contiguous()
 
 
+def check_chain_dims(name: str, k: StageKernel, widths) -> None:
+    """Raise unless the stage is C_in = mid = C_out / 2 with C_in in
+    ``widths``, the shape the mma_chain.cuh kernels are built for."""
+    cin, cout, mid, _ = k.dims
+    if cin not in widths or mid != cin or cout != 2 * cin:
+        raise ValueError(f'{name}: the kernel is built for C_in = mid = '
+                         f'C_out / 2 in {tuple(widths)}, got {k.dims}')
+
+
+def check_aligned(name: str, *xs: torch.Tensor) -> None:
+    for x in xs:
+        if x.data_ptr() % 16:
+            raise ValueError(f'{name}: inputs must start on a 16-byte '
+                             f'boundary (the kernel copies 16-byte chunks)')
+
+
 def launch_stage(entry: str, counter: str, x: torch.Tensor, k: StageKernel,
-                 *scratch: torch.Tensor, w: torch.Tensor = None
-                 ) -> torch.Tensor:
+                 *scratch: torch.Tensor, ints=()) -> torch.Tensor:
     """Launch the stage kernel ``entry`` of the library on (S, H, W, C_in)
-    CUDA ``x`` (``scratch``: extra device buffers it takes before the
-    output; ``w``: the weight buffer it reads, ``k.w`` by default) and add
-    one to the launch count ``counter``."""
+    CUDA ``x``, its weights the packed slices ``k.ws`` (``ints``: integer
+    arguments it takes after the scale/bias buffer; ``scratch``: extra
+    device buffers it takes before the output), and add one to the launch
+    count ``counter``."""
     cin, cout, mid, nb = k.dims
     k.check_kernel_dims(counter)
-    w = k.w if w is None else w
-    _kernels.require_cuda(counter, x, w, k.sb, *scratch)
+    _kernels.require_cuda(counter, x, k.ws, k.sb, *scratch)
     n, h, wd = x.shape[:3]
     out = torch.empty((n, h // 2, wd // 2, cout), dtype=torch.bfloat16,
                       device=x.device)
     status = getattr(_kernels.library(), entry)(
-        x.data_ptr(), n, h, wd, cin, cout, mid, nb, w.data_ptr(),
-        k.sb.data_ptr(), *(t.data_ptr() for t in scratch), out.data_ptr(),
-        _kernels.stream_ptr(x))
+        x.data_ptr(), n, h, wd, cin, cout, mid, nb, k.ws.data_ptr(),
+        k.sb.data_ptr(), *ints, *(t.data_ptr() for t in scratch),
+        out.data_ptr(), _kernels.stream_ptr(x))
     _kernels.check(status, counter)
     _kernels.count_launch(counter)
     return out
@@ -230,11 +269,6 @@ def stage_csp(x: torch.Tensor, k: StageKernel) -> torch.Tensor:
     check_stage_input('stage_csp', x, k)
     if x.device.type == 'cpu':
         return stage_csp_plain(x, k)
-    cin, cout, mid, _ = k.dims
-    if cin not in STAGE_CSP_WIDTHS or mid != cin or cout != 2 * cin:
-        raise ValueError(f'stage_csp: the kernel is built for C_in = mid = '
-                         f'C_out / 2 in {STAGE_CSP_WIDTHS}, got {k.dims}')
-    if x.data_ptr() % 16:
-        raise ValueError('stage_csp: the input must start on a 16-byte '
-                         'boundary (the kernel copies 16-byte chunks)')
-    return launch_stage('st_stage_csp', 'stage2', x, k, w=k.ws)
+    check_chain_dims('stage_csp', k, STAGE_CSP_WIDTHS)
+    check_aligned('stage_csp', x)
+    return launch_stage('st_stage_csp', 'stage2', x, k)

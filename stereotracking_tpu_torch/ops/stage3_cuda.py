@@ -7,20 +7,26 @@ mid 128, 3 bottlenecks).  It computes what ``stage_csp`` computes, with the
 same bf16 rounding points, so the plain version is ``stage_csp_plain``.
 
 At these widths the one-launch kernel's 16 x 16 region does not fit a
-block's shared memory, so ``csrc/stage3.cu`` splits the chain: launch A
-writes [main | short] (S, H/2, W/2, C_out) bf16 to a scratch buffer that
-this wrapper allocates, launch B runs the bottlenecks and the final 1x1 on
-16 x 16 regions of main with a 3-ring halo.  The two launches count as one
-launch of the stage-3 kernel.
+block's shared memory, so ``csrc/stage3.cu`` runs the two halves of the
+``mma_chain.cuh`` chain as two launches: launch A (the entry conv and
+main|short per 8 x 16 tile) writes [main | short] (S, H/2, W/2, C_out) bf16
+to a scratch buffer that this wrapper allocates; launch B runs the
+bottlenecks and the final 1x1 on 16 x 16 regions of main with a 3-ring
+halo, streaming the packed weight slices from the first bottleneck's
+(``slice_offsets``), which this wrapper passes.  The kernel is built for
+C_in = mid = C_out / 2 = 128.  The two launches count as one launch of the
+stage-3 kernel.
 """
 from __future__ import annotations
 
 import torch
 
-from .stage2_cuda import (StageKernel, check_stage_input, launch_stage,
-                          stage_csp_plain)
+from .stage2_cuda import (CHAIN_GEMM, StageKernel, check_aligned,
+                          check_chain_dims, check_stage_input, launch_stage,
+                          slice_offsets, stage_csp_plain)
 
 stage3_csp_plain = stage_csp_plain
+STAGE3_WIDTHS = (128,)      # C_in the stage-3 kernel is built for
 
 
 def stage3_csp(x: torch.Tensor, k: StageKernel) -> torch.Tensor:
@@ -31,7 +37,10 @@ def stage3_csp(x: torch.Tensor, k: StageKernel) -> torch.Tensor:
     check_stage_input('stage3_csp', x, k)
     if x.device.type == 'cpu':
         return stage3_csp_plain(x, k)
+    check_chain_dims('stage3_csp', k, STAGE3_WIDTHS)
+    check_aligned('stage3_csp', x)
     n, h, w = x.shape[:3]
     ms = torch.empty((n, h // 2, w // 2, 2 * k.dims[2]),
                      dtype=torch.bfloat16, device=x.device)
-    return launch_stage('st_stage3', 'stage3', x, k, ms)
+    return launch_stage('st_stage3', 'stage3', x, k, ms,
+                        ints=(slice_offsets(k.dims)[CHAIN_GEMM],))

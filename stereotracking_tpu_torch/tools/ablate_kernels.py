@@ -1,16 +1,18 @@
-"""Where the time of the stem and stage-2 kernels goes, on the card.
+"""Where the time of the stem and the stage-chain kernels goes, on the card.
 
     python -m stereotracking_tpu_torch.tools.ablate_kernels
 
 Builds copies of ``csrc/`` in each of which one part of a kernel is
 switched off or replaced (the source edits in ``ABLATIONS``), one ``nvcc``
-per copy, all at once, and loads each as a library of its own.  It then
-times the stem (both branches) and the stage-2 kernel of each copy at
-``--streams`` streams of 1080p (seeded random frames and weights at the
-flagship's widths) beside the unedited kernels, with CUDA events.  An
-ablated kernel computes wrong values: its output is used for nothing but
-the timing.  Prints one JSON line of ``<kernel>_<ablation>_ms``.  Needs an
-NVIDIA GPU and ``nvcc``.
+per copy, all at once, and loads each as a library of its own.  The
+``chain`` ablations edit ``mma_chain.cuh``, the core of stages 1, 2 and 3.
+It then times the stem (both branches), or the stage-1 (production
+variant), stage-2 and stage-3 kernels, of each copy at ``--streams``
+streams of 1080p (seeded random frames and weights at the flagship's
+widths) beside the unedited kernels, with CUDA events.  An ablated kernel
+computes wrong values: its output is used for nothing but the timing.
+Prints one JSON line of ``<kernel>_<ablation>_ms``.  Needs an NVIDIA GPU
+and ``nvcc``.
 """
 from __future__ import annotations
 
@@ -29,18 +31,21 @@ from .. import _kernels
 from ..models.detector import DetectorConfig, YOLOXDetector
 from ..models.mot import init_weights
 from ..models.preprocessor import padded_shape
-from ..ops.stage1_cuda import stage1_dual
-from ..ops.stage2_cuda import stage_csp
+from ..ops.stage1_cuda import PRODUCTION, VARIANTS, stage1_dual
+from ..ops.stage2_cuda import CHAIN_GEMM, slice_offsets, stage_csp
+from ..ops.stage3_cuda import stage3_csp
 from ..ops.stem_cuda import focus_stem
 from ..utils.devices import checked_device
 from .probe_stage1_variants import cuda_ms
 
-_MMA2 = ('''              mma_bf16(acc[0][2 * jp], a0, b[0], b[1]);
-              mma_bf16(acc[1][2 * jp], a1, b[0], b[1]);
-              mma_bf16(acc[0][2 * jp + 1], a0, b[2], b[3]);
-              mma_bf16(acc[1][2 * jp + 1], a1, b[2], b[3]);''',
-         '''              acc[0][2 * jp][0] += __uint_as_float(a0[0] ^ b[0]);
-              acc[1][2 * jp][1] += __uint_as_float(a1[1] ^ b[3]);''')
+_MMA2 = ('''                mma_bf16(acc[i][2 * jp], a[i], b[0], b[1]);
+#pragma unroll
+              for (int i = 0; i < MT; ++i)
+                mma_bf16(acc[i][2 * jp + 1], a[i], b[2], b[3]);''',
+         '''                acc[i][2 * jp][0] += __uint_as_float(a[i][0] ^ b[0]);
+#pragma unroll
+              for (int i = 0; i < MT; ++i)
+                acc[i][2 * jp + 1][1] += __uint_as_float(a[i][1] ^ b[3]);''')
 _ACT2 = ('act_fast(acc[i][j][2 * hh]', 'act_fast(acc[i][j][2 * hh + 1]')
 _ACT1 = ('act_fast(acc[i][j][2 * hh], s0, b0)',
          'act_fast(acc[i][j][2 * hh + 1], s1, b1)')
@@ -65,7 +70,8 @@ ABLATIONS = {
         'no_store': [('stem.cu', 'if (oy < hout && ox < wout)\n',
                       'if (oy < hout && ox < wout && h < 0)\n')],
     },
-    'stage2': {
+    # mma_chain.cuh, run by stages 1-3
+    'chain': {
         'exact_act': [('mma_chain.cuh', a, a.replace('act_fast', 'st_act'))
                       for a in _ACT2],
         'no_act': [('mma_chain.cuh', f'act_fast(acc[i][j][2 * hh{q}], '
@@ -84,7 +90,12 @@ ABLATIONS = {
                    'constexpr int STAGES = 3;')],
     },
 }
-_MAIN = {'stem': 'stem.cu', 'stage2': 'stage2.cu'}
+_SOURCES = {'stem': ('stem.cu',),
+            'chain': ('stage1.cu', 'stage2.cu', 'stage3.cu')}
+_CHAIN = ('stage1', 'stage2', 'stage3')
+# a third ring slot does not fit stage 3's first launch (225,536 + 8,192 B
+# of shared memory > 232,448 B)
+_SKIP = {('stage3', 'ring3')}
 
 
 def build_ablations() -> Dict[str, ctypes.CDLL]:
@@ -105,7 +116,8 @@ def build_ablations() -> Dict[str, ctypes.CDLL]:
                     (src / fname).write_text(text.replace(old, new, 1))
                 procs[tag] = subprocess.Popen(
                     [_kernels._nvcc(), *_kernels.NVCC_FLAGS, '-shared', '-o',
-                     str(root / f'{tag}.so'), str(src / _MAIN[kernel]),
+                     str(root / f'{tag}.so'),
+                     *(str(src / s) for s in _SOURCES[kernel]),
                      str(src / 'errors.cu')], stdout=subprocess.PIPE,
                     stderr=subprocess.STDOUT, text=True)
         logs = {tag: proc.communicate()[0] for tag, proc in procs.items()}
@@ -135,15 +147,22 @@ def run_ablations(n_streams: int = 8, h: int = 1080, w: int = 1920,
     oh, ow = padded_shape(h, w)
     so = focus_stem(img, *kw['stem'], oh, ow)
     dso = focus_stem(disp, *kw['disp_stem'], oh, ow)
-    y1 = stage1_dual(so, dso, kw['stage1'], kw['disp_stage1'])
-    k2 = kw['stage2']
+    k1, kd1, k2, k3 = (kw[k] for k in ('stage1', 'disp_stage1', 'stage2',
+                                       'stage3'))
+    y1 = stage1_dual(so, dso, k1, kd1)
     y2 = stage_csp(y1, k2)
+    y3 = stage3_csp(y2, k3)
+    ms = torch.empty((*y2.shape[:3], 2 * k3.dims[2]), dtype=torch.bfloat16,
+                     device=device)
     stream = _kernels.stream_ptr(img)
-    p, i = ctypes.c_void_p, ctypes.c_int
+
+    def bind(lib, name):
+        fn = getattr(lib, name)
+        fn.argtypes = list(_kernels._SIGNATURES[name])
+        return fn
 
     def stem_call(lib):
-        fn = lib.st_focus_stem
-        fn.argtypes = [p, i, i, i, i, i, i, i, p, p, p, p]
+        fn = bind(lib, 'st_focus_stem')
         outs = [torch.empty_like(so), torch.empty_like(dso)]
 
         def call():
@@ -156,26 +175,52 @@ def run_ablations(n_streams: int = 8, h: int = 1080, w: int = 1920,
                                   out.data_ptr(), stream), key)
         return call
 
+    def stage1_call(lib):
+        fn = bind(lib, 'st_stage1_dual')
+
+        def call():
+            _kernels.check(fn(so.data_ptr(), dso.data_ptr(), n_streams,
+                              *so.shape[1:3], *k1.dims, k1.ws.data_ptr(),
+                              k1.sb.data_ptr(), kd1.ws.data_ptr(),
+                              kd1.sb.data_ptr(), y1.data_ptr(),
+                              VARIANTS.index(PRODUCTION), stream), 'stage1')
+        return call
+
     def stage2_call(lib):
-        fn = lib.st_stage_csp
-        fn.argtypes = [p, i, i, i, i, i, i, i, p, p, p, p]
-        cin, cout, mid, nb = k2.dims
+        fn = bind(lib, 'st_stage_csp')
 
         def call():
             _kernels.check(fn(y1.data_ptr(), n_streams, *y1.shape[1:3],
-                              cin, cout, mid, nb, k2.ws.data_ptr(),
-                              k2.sb.data_ptr(), y2.data_ptr(), stream),
-                           'stage2')
+                              *k2.dims, k2.ws.data_ptr(), k2.sb.data_ptr(),
+                              y2.data_ptr(), stream), 'stage2')
         return call
 
+    def stage3_call(lib):
+        fn = bind(lib, 'st_stage3')
+        first = slice_offsets(k3.dims)[CHAIN_GEMM]
+
+        def call():
+            _kernels.check(fn(y2.data_ptr(), n_streams, *y2.shape[1:3],
+                              *k3.dims, k3.ws.data_ptr(), k3.sb.data_ptr(),
+                              first, ms.data_ptr(), y3.data_ptr(), stream),
+                           'stage3')
+        return call
+
+    calls = {'stem': stem_call, 'stage1': stage1_call,
+             'stage2': stage2_call, 'stage3': stage3_call}
     libs = build_ablations()
     out = {'stem_ms': cuda_ms(lambda: (focus_stem(img, *kw['stem'], oh, ow),
                                        focus_stem(disp, *kw['disp_stem'],
                                                   oh, ow)), iters),
-           'stage2_ms': cuda_ms(lambda: stage_csp(y1, k2), iters)}
+           'stage1_ms': cuda_ms(lambda: stage1_dual(so, dso, k1, kd1), iters),
+           'stage2_ms': cuda_ms(lambda: stage_csp(y1, k2), iters),
+           'stage3_ms': cuda_ms(lambda: stage3_csp(y2, k3), iters)}
     for tag, lib in libs.items():
-        call = (stem_call if tag.startswith('stem_') else stage2_call)(lib)
-        out[f'{tag}_ms'] = cuda_ms(call, iters)
+        group, ablation = tag.split('_', 1)
+        for kernel in (_CHAIN if group == 'chain' else (group,)):
+            if (kernel, ablation) not in _SKIP:
+                out[f'{kernel}_{ablation}_ms'] = cuda_ms(calls[kernel](lib),
+                                                         iters)
     return out
 
 

@@ -150,11 +150,12 @@ def test_stage2_kernel_ragged(dev, kw, hw):
                            stage2_cuda.stage_csp(x[s:s + 1], kw['stage2']))
 
 
-@pytest.mark.parametrize('hw', [(24, 40), (34, 60)])
+@pytest.mark.parametrize('hw', [(9, 13), (24, 40), (34, 60)])
 def test_stage3_kernel(dev, kw, hw):
     """Stage 3 at full width (128 -> 256, 3 blocks) on stage-2-shaped
-    inputs, tile edges included (34 x 60 is the 1080p map / 4), counted
-    under its own name."""
+    inputs, tile edges included (34 x 60 is the 1080p map / 4; 9 x 13 clips
+    both launches' tiles, 8 x 16 and 10 x 10), counted under its own
+    name."""
     g = torch.Generator().manual_seed(2)
     x = (torch.randn((S, 2 * hw[0], 2 * hw[1], 128), generator=g) * 0.8).to(
         torch.bfloat16).to(dev)
@@ -166,6 +167,73 @@ def test_stage3_kernel(dev, kw, hw):
     assert y.shape == (S, hw[0], hw[1], 256)
     _stage_close(y, stage3_cuda.stage3_csp_plain(x, kw['stage3']))
     assert torch.equal(y[1:2], stage3_cuda.stage3_csp(x[1:2], kw['stage3']))
+
+
+def _random_stage(dims, seed, dev):
+    """Seeded random stage weights of ``dims`` (C_in, C_out, mid, nb) on
+    ``dev``: bf16 values, BN scales in [0.5, 1.5)."""
+    cin, cout, mid, nb = dims
+    g = torch.Generator().manual_seed(seed)
+
+    def w(*shape):
+        return (torch.randn(shape, generator=g) * 0.1).to(
+            torch.bfloat16).float()
+
+    def sb(*shape):          # (..., 2, n): scale, bias
+        return torch.stack([torch.rand(shape, generator=g) + 0.5,
+                            torch.randn(shape, generator=g) * 0.1], dim=-2)
+
+    wts = stage2_cuda.StageWeights(
+        entry_w=w(3, 3, cin, cout), entry_sb=sb(cout),
+        ms_w=w(cout, 2 * mid), ms_sb=sb(2 * mid),
+        c1_w=w(nb, mid, mid), c1_sb=sb(nb, mid),
+        c2_w=w(nb, 3, 3, mid, mid), c2_sb=sb(nb, mid),
+        fin_w=w(2 * mid, cout), fin_sb=sb(cout))
+    return stage2_cuda.pack_stage(
+        stage2_cuda.StageWeights(*(f.to(dev) for f in wts)))
+
+
+@pytest.mark.parametrize('nb', [1, 3])
+@pytest.mark.parametrize('hw', [(23, 37), (34, 60)])
+def test_stage_csp_kernel_c32(dev, nb, hw):
+    """The stage-2 kernel's C_in = 32 instantiation (widen 0.25: 32 -> 64)
+    on S = 3 streams, ragged against its tile; each stream of the batch
+    equals its own launch."""
+    k = _random_stage((32, 64, 32, nb), 40 + nb, dev)
+    g = torch.Generator().manual_seed(nb)
+    x = (torch.randn((S, 2 * hw[0], 2 * hw[1], 32), generator=g)).to(
+        torch.bfloat16).to(dev)
+    before = _kernels.launch_counts()['stage2']
+    y = stage2_cuda.stage_csp(x, k)
+    assert _kernels.launch_counts()['stage2'] == before + 1
+    assert y.shape == (S, hw[0], hw[1], 64)
+    _stage_close(y, stage2_cuda.stage_csp_plain(x, k))
+    for s in range(S):
+        assert torch.equal(y[s:s + 1], stage2_cuda.stage_csp(x[s:s + 1], k))
+
+
+@pytest.mark.parametrize('variant', sorted({stage1_cuda.PRODUCTION,
+                                            'r16x16_mma', 'r8x16_mma'}))
+@pytest.mark.parametrize('hw', [(9, 15), (23, 37)])
+def test_stage1_kernel_ragged(dev, kw, variant, hw):
+    """Stage 1's production kernel and both mma.sync variants on S = 3
+    stem-shaped inputs whose output is not a multiple of the 14 x 14 or
+    6 x 14 tile; each stream of the batch equals its own launch."""
+    g = torch.Generator().manual_seed(hw[0])
+    r, d = ((torch.randn((S, 2 * hw[0], 2 * hw[1], 32), generator=g)
+             * 0.8).to(torch.bfloat16).to(dev) for _ in range(2))
+    k1, kd1 = kw['stage1'], kw['disp_stage1']
+
+    def run(a, b):
+        if variant == stage1_cuda.PRODUCTION:
+            return stage1_cuda.stage1_dual(a, b, k1, kd1)
+        return stage1_cuda.stage1_dual_variant(a, b, k1, kd1, variant)
+
+    y = run(r, d)
+    assert y.shape == (S, hw[0], hw[1], 64)
+    _stage_close(y, stage1_cuda.stage1_dual_plain(r, d, k1, kd1))
+    for s in range(S):
+        assert torch.equal(y[s:s + 1], run(r[s:s + 1], d[s:s + 1]))
 
 
 @pytest.mark.parametrize('variant', stage1_cuda.VARIANTS)

@@ -224,7 +224,7 @@ def test_probe_needs_the_card(world):
     from stereotracking_tpu_torch.ops import stage1_cuda
     from stereotracking_tpu_torch.tools import probe_stage1_variants as probe
     assert stage1_cuda.PRODUCTION in stage1_cuda.VARIANTS
-    assert len(set(stage1_cuda.VARIANTS)) == 4
+    assert len(set(stage1_cuda.VARIANTS)) == 6
     with pytest.raises(RuntimeError, match='NVIDIA GPU'):
         probe.run_probe(device='cpu')
     k = port_detector(world['v']).backbone.kernel_weights()
@@ -235,3 +235,18 @@ def test_probe_needs_the_card(world):
     with pytest.raises(ValueError, match='unknown variant'):
         stage1_cuda.stage1_dual_variant(x, x, k['stage1'],
                                         k['disp_stage1'], 'r4x4')
+
+
+def test_ablation_edits_match_the_kernel_sources():
+    """Each source edit of the ablation tool finds its text, once switched
+    on changes its file, and names a kernel group the tool builds: the tool
+    raises on the card when a refactor leaves a pattern behind."""
+    from stereotracking_tpu_torch import _kernels
+    from stereotracking_tpu_torch.tools import ablate_kernels as ab
+    assert set(ab.ABLATIONS) == set(ab._SOURCES)
+    for group, ablations in ab.ABLATIONS.items():
+        for name, edits in ablations.items():
+            for fname, old, new in edits:
+                text = (_kernels.CSRC / fname).read_text()
+                assert old in text, (group, name, fname)
+                assert text.replace(old, new, 1) != text, (group, name)

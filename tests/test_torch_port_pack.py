@@ -2,8 +2,10 @@
 
 The stem kernel multiplies an im2col of the preprocessed frame by a (K, O)
 bf16 matrix, K = 36 C in (uy, ux, c) order padded to a multiple of 16; the
-stage-2 kernel streams its weights as 64 x 64 slices in the order it runs
-its GEMMs.  Both packings are checked here against what the kernels assume.
+stage kernels stream their weights as 64 x 64 slices in the order they run
+their GEMMs, stage 3's second launch from the first bottleneck's slice on.
+The packings and the slice offsets are checked here against what the
+kernels assume.
 """
 import numpy as np
 import pytest
@@ -103,6 +105,15 @@ def _unpack_stage(k):
         fin_sb=fin.reshape(2, cout))
 
 
+def _gemm_matrices(wts):
+    """The chain's (K, N) matrices in the order the kernels run them."""
+    cin, cout, mid, nb = wts.dims
+    mats = [wts.entry_w.reshape(9 * cin, cout), wts.ms_w]
+    for b in range(nb):
+        mats += [wts.c1_w[b], wts.c2_w[b].reshape(9 * mid, mid)]
+    return mats + [wts.fin_w]
+
+
 @pytest.mark.parametrize('dims', DIMS)
 def test_stage_slices_unpack_to_the_weights(dims):
     wts = _stage_weights(dims, sum(dims))
@@ -119,15 +130,10 @@ def test_stage_slices_follow_the_kernel_order(dims):
     """Slice s is the block the kernel multiplies s-th: GEMMs entry,
     main|short, (conv1, conv2) per block, final; N passes of 64 outer, K
     slices of 64 inner; zeros past the matrix."""
-    cin, cout, mid, nb = dims
-    wts = _stage_weights(dims, 7 + sum(dims))
+    wts =_stage_weights(dims, 7 + sum(dims))
     ws = stage2_cuda.pack_stage(wts).ws.float()
-    mats = [wts.entry_w.reshape(9 * cin, cout), wts.ms_w]
-    for b in range(nb):
-        mats += [wts.c1_w[b], wts.c2_w[b].reshape(9 * mid, mid)]
-    mats.append(wts.fin_w)
     s = 0
-    for m in mats:
+    for m in _gemm_matrices(wts):
         for n0 in range(0, m.shape[1], 64):
             for k0 in range(0, m.shape[0], 64):
                 blk = m[k0:k0 + 64, n0:n0 + 64]
@@ -136,3 +142,45 @@ def test_stage_slices_follow_the_kernel_order(dims):
                 assert torch.equal(ws[s], want), (s, k0, n0)
                 s += 1
     assert ws.shape[0] == s
+
+
+STAGE3_DIMS = (128, 256, 128, 3)
+
+
+@pytest.mark.parametrize('dims', DIMS + [STAGE3_DIMS])
+def test_slice_offsets_count_the_slices_before(dims):
+    """Each GEMM starts after the slices of the GEMMs before it; the last
+    entry is the stream's length."""
+    shapes = stage2_cuda.gemm_shapes(dims)
+    offs = stage2_cuda.slice_offsets(dims)
+    assert len(offs) == len(shapes) + 1
+    for i in range(len(offs)):
+        assert offs[i] == sum(-(-k // 64) * -(-n // 64)
+                              for k, n in shapes[:i]), i
+    assert offs[-1] == stage2_cuda.pack_stage(
+        _stage_weights(dims, 1)).ws.shape[0]
+
+
+def test_stage3_second_launch_starts_at_slice_88():
+    """Stage 3's chain part (its second launch) starts after the entry
+    conv's 72 slices and main|short's 16, and streams 136 of 224."""
+    offs = stage2_cuda.slice_offsets(STAGE3_DIMS)
+    assert offs[:3] == [0, 72, 88]
+    assert offs[stage2_cuda.CHAIN_GEMM] == 88 and offs[-1] == 224
+
+
+@pytest.mark.parametrize('dims', DIMS + [STAGE3_DIMS])
+def test_unpacking_from_an_offset_gives_the_gemm(dims):
+    """The slices from each GEMM's offset to the next one's are that GEMM's
+    (K, N) matrix, N passes outer, K slices inner, zeros past it."""
+    wts = _stage_weights(dims, 11 + sum(dims))
+    ws = stage2_cuda.pack_stage(wts).ws.float()
+    offs = stage2_cuda.slice_offsets(dims)
+    for i, m in enumerate(_gemm_matrices(wts)):
+        k, n = m.shape
+        kp, np_ = -(-k // 64), -(-n // 64)
+        assert offs[i + 1] - offs[i] == kp * np_
+        blocks = ws[offs[i]:offs[i + 1]].reshape(np_, kp, 64, 64)
+        full = blocks.permute(1, 2, 0, 3).reshape(kp * 64, np_ * 64)
+        assert torch.equal(full[:k, :n], m), i
+        assert not full[k:].any() and not full[:, n:].any(), i
