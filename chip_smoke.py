@@ -10,24 +10,33 @@ Phases, in order; any failure exits non-zero:
    reference computations;
 2. build: compiles the CUDA kernels from ``stereotracking_tpu_torch/csrc``
    (one nvcc per source, all at once, sm_90a) and prints the build time;
-   compiles the sources of the kernels redesigned for the tensor cores (the
-   stem, stages 1-3) once more with ``-Xptxas -v`` and prints their
+   compiles the sources of the kernels redesigned for the H100 (the stem,
+   stages 1-3, depth) once more with ``-Xptxas -v`` and prints their
    registers, shared memory and spills;
 3. kernels: each kernel against its plain PyTorch version on the same
    inputs, at one stream and at 8 streams of 1080x1920 raw frames padded to
    1088x1920, with the tolerance stated beside each check; kernel, plain
    version and (where one PyTorch call computes the same function) that
    call timed with CUDA events; each kernel's bound from its bytes and
-   operations; for the stem and stages 1-3 the achieved TFLOP/s and share
-   of the bound, and for stages 1-3 the weight bytes read from L2 per
-   region before (wmma B fragments from device memory) and after (the
+   operations; for the stem, stages 1-3 and depth the achieved rate and
+   share of the bound, and for stages 1-3 the weight bytes read from L2
+   per region before (wmma B fragments from device memory) and after (the
    slice ring); the float32 stage-3 modules (TF32 off) timed beside the
-   stage-3 kernel;
+   stage-3 kernel; for depth also its vote branches against the plain
+   composite's and the host wall of one whole extraction beside the eager
+   box scalars + epilogue it runs inside; its device time and the kernel
+   launches of each (one per extraction) come from ``torch.profiler``
+   after phase 6, since a profiler session slows the host work after it;
 4. reference: on a small frame the kernel path's head outputs (stage 3
    through its kernel too) must agree with the float32 module path;
 5. slice: ``build_model(flagship config)`` on the card, ``track_raw`` over
    6 synthetic 1080p frames; launch counts must show stem 2, stage 1 1,
    stage 2 1 and depth 2 per frame; outputs finite; host syncs per frame;
+   then over 2 frames each the stem and stage-1 kernels with stage 2 on
+   the float32 modules (launches stem 2, stage 1 1, stage 2 0, depth 2 per
+   frame), and a widen-0.25 config with every stage 'auto' (the stem
+   kernel only: stem 2, stages 1-3 0, depth 2; the builder's warning for
+   stage 1 printed);
 6. multi-stream: ``MultiStreamTracker`` with the flagship config and
    ``stage3_backend='cuda'``, 8 steps of 8 streams (each stream its own
    seed); ms per step and stereo pairs/s; launch counts must show stem 2,
@@ -86,9 +95,10 @@ KERNELS = {
                         'tools/probe_stage1_variants.py:153'),
 }
 
-# kernels redesigned for the H100's tensor cores: their achieved rate, share
-# of the bound and ptxas resource usage are printed too
-REDESIGNED = ('stem', 'stage1', 'stage2', 'stage3')
+# kernels redesigned for the H100: their achieved rate, share of the bound
+# and ptxas resource usage are printed too
+REDESIGNED = ('stem', 'stage1', 'stage2', 'stage3', 'depth')
+ALL_KERNELS = ('cuda',) * 4       # a StageBackends with every stage kernel
 
 
 class SmokeFailure(Exception):
@@ -155,6 +165,40 @@ def time_ms(fn, iters):
     return cuda_ms(fn, iters)
 
 
+def device_kernels(fn, calls):
+    """(name, device us) of each kernel that ``calls`` calls of ``fn``
+    launch, from torch.profiler's trace.  ``fn`` launches at least one
+    kernel, so a trace with none was dropped (torch.profiler on the card
+    now and then drops device events, and at times all of them): it is
+    taken again, up to 3 times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ks = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.name.startswith(('Memcpy', 'Memset'))]
+        if ks:
+            return ks
+    raise SmokeFailure('torch.profiler recorded no kernel in 3 traces')
+
+
+def device_ms(fn, kernel, iters):
+    """Mean device milliseconds of the kernel whose name holds ``kernel``,
+    one launch per call of ``fn``, over the launches the trace holds (it
+    may drop one now and then)."""
+    us = [t for name, t in device_kernels(fn, iters) if kernel in name]
+    require(iters // 2 <= len(us) <= iters,
+            f'{kernel}: {len(us)} kernels in the trace of {iters} calls')
+    return sum(us) / len(us) / 1e3
+
+
 def bound(nbytes, ops, rate):
     """(least ms, what bounds it): the bytes over the HBM rate or the
     operations over the peak rate of their type, the larger."""
@@ -176,16 +220,22 @@ def nbytes(*ts):
 
 
 def depth_boxes(device):
-    """Boxes on every pyramid level (crop 96: sizes 40, 150, 300, 700),
-    degenerate boxes, boxes leaving the frame and > 800 px wide."""
+    """64 boxes: on every pyramid level (crop 96: sizes 40, 150, 300, 700),
+    degenerate, leaving the frame, > 800 px wide, with n = 0 (the invalid
+    upper half of make_frames' maps), 1 and 2, on the all-equal window of
+    check_depth, and NaN (empty tracker slots)."""
     import torch
+    nan = math.nan
     b = [[100, 600, 140, 630], [400, 700, 550, 800], [800, 560, 1100, 760],
          [200, 400, 900, 1000], [1000, 540, 1010, 541],   # levels 0-3, tiny
          [-30, -30, -5, -5], [-10, 600, 40, 640],         # negative corners
          [1900, 1070, 1990, 1150], [1950, 700, 2000, 720],  # leaving / out
          [500, 700, 500, 760], [300, 650, 1200, 700],     # zero width, >800
-         [0, 0, 1920, 1088]]
-    for i in range(52):                                  # 64 in all
+         [0, 0, 1920, 1088], [600, 2, 612, 8],            # n = 0
+         [700, 800, 701, 801], [700, 800, 702, 801],      # n = 1, 2
+         [1505, 905, 1550, 945], [nan, nan, nan, nan],    # equal, NaN
+         [nan, 10.0, nan, 50.0]]
+    for i in range(64 - len(b)):
         x, y = 37 * i % 1800, 540 + 13 * i % 500
         b.append([x, y, x + 8 + 3 * i, y + 6 + 2 * i])
     return torch.tensor(b, dtype=torch.float32, device=device)
@@ -237,15 +287,13 @@ def weight_reads(n, name, regions, before, after):
 
 def check_kernels(model, frames, device, iters=10):
     """Phase 3 at S = len(frames) streams: each kernel against its plain
-    version, all timed; returns {name: result row}."""
+    version, all timed; returns {name: result row} and the depth check's
+    torch.profiler function (``check_depth``)."""
     import torch
     import torch.nn.functional as F
-    from stereotracking_tpu_torch.models.preprocessor import (
-        padded_shape, preprocess_frame_pure)
-    from stereotracking_tpu_torch.ops import (depth_cuda, stage1_cuda,
-                                              stage2_cuda, stage3_cuda,
-                                              stem_cuda)
-    from stereotracking_tpu_torch.ops.depth import depth_epilogue
+    from stereotracking_tpu_torch.models.preprocessor import padded_shape
+    from stereotracking_tpu_torch.ops import (stage1_cuda, stage2_cuda,
+                                              stage3_cuda, stem_cuda)
     n = len(frames)
     img, disp_u16 = to_card(frames, device)
     oh, ow = padded_shape(*img.shape[1:3])
@@ -358,46 +406,163 @@ def check_kernels(model, frames, device, iters=10):
           f'modules (model.backbone.stage3, TF32 off) {mod_ms:.4f} ms',
           flush=True)
 
-    # depth: integer statistics exact; float sums and depths within float32
-    # reassociation (rtol 2e-6, atol 1e-5 on depths as in
-    # tests/test_depth_pallas.py; rtol 1e-5 on the raw sums)
-    cfg = model.cfg
+    res['depth'], trace = check_depth(model.cfg, img, disp_u16, oh, ow,
+                                      device, iters)
+    return res, trace
+
+
+def depth_inputs(img, disp_u16, oh, ow, device):
+    """The depth phase's (S, H, W) disparity maps (the frames' preprocessed
+    disparity with an all-equal window) and depth_boxes on each stream."""
+    import torch
+    from stereotracking_tpu_torch.models.preprocessor import \
+        preprocess_frame_pure
     disp = preprocess_frame_pure(img, disp_u16, oh, ow)['disp_postp'][
         ..., 0].contiguous()
-    boxes = depth_boxes(device)[None].repeat(n, 1, 1)
-    valid = torch.ones(boxes.shape[:2], dtype=torch.bool, device=device)
+    disp[:, 900:950, 1500:1560] = 30.0               # an all-equal window
+    boxes = depth_boxes(device)[None].repeat(img.shape[0], 1, 1)
+    return disp, boxes, torch.isfinite(boxes).all(2)
+
+
+def window_depths(stats, boxes, valid, h, w, bf):
+    """(S * N, 3): the depth that each of the corner vote's three rank
+    windows gives from the stats rows of the (S, N, 4) boxes, so that a
+    check can tell which window a depth came from."""
+    import torch
+    from stereotracking_tpu_torch.ops import depth_cuda as dc
+    n = stats[:, 0].to(torch.int32)
+    r_vals = dc.f_depth(stats[:, 1:9].to(torch.int32), bf)
+    skip = dc.skip_mask(boxes.reshape(-1, 4), valid.reshape(-1), h, w)
+    cols = []
+    for votes in (0, 3, 4):                 # the corners of each branch
+        corners = torch.full((n.shape[0], 4), -math.inf, device=stats.device)
+        corners[:, :votes] = math.inf
+        cols.append(dc.finish(n, r_vals, stats[:, 9:16].to(torch.int32),
+                              stats[:, 16:23], corners, skip)[0])
+    return torch.stack(cols, 1)
+
+
+def check_depth(cfg, img, disp_u16, oh, ow, device, iters):
+    """The depth kernel against its plain composite (box scalars, stats,
+    corner vote) on boxes at every pyramid level, with n = 0, 1 and 2, an
+    all-equal window, boxes leaving the frame or wider than 800 px and NaN
+    boxes flagged invalid; timed by CUDA events as every kernel is, with
+    the host wall of one whole extraction beside the eager box scalars +
+    epilogue it runs inside.  Returns the kernel's row and a function that
+    adds to it the torch.profiler figures: the kernel's device time and the
+    kernel launches of one extraction and of the eager parts."""
+    import torch
+    from stereotracking_tpu_torch.ops import depth_cuda as dc
+    from stereotracking_tpu_torch.ops.depth import extract_box_depths_disp
+    n = img.shape[0]
+    crop = cfg.depth_crop
+    disp, boxes, valid = depth_inputs(img, disp_u16, oh, ow, device)
     bf = float(cfg.baseline) * float(cfg.focal_length)
-    scal = depth_cuda.box_scalars(boxes, cfg.depth_crop,
-                                  depth_cuda.depth_rmin(bf), oh, ow)
+    scal = dc.box_scalars(boxes, crop, dc.depth_rmin(bf), oh, ow)
     levels = set(scal[:, 0].tolist())
     require(levels == {0, 1, 2, 3}, f'depth boxes hit levels {levels}')
-    ks = depth_cuda.box_depth_stats(disp, scal, cfg.depth_crop, bf)
-    ps = depth_cuda.box_depth_stats_plain(disp, scal, cfg.depth_crop, bf)
+    kd, ksc, ks = dc.box_depths(disp, boxes, valid, crop, bf)
+    pd, psc, ps = dc.box_depths_plain(disp, boxes, valid, crop, bf)
+    torch.cuda.synchronize()
+    # integer statistics exact; float sums within rtol 1e-5 (float32
+    # reassociation over up to 9,216 terms); depths and scales within rtol
+    # 2e-6, atol 1e-5, as tests/test_depth_pallas.py holds the Pallas kernel
     require(torch.equal(ks[:, :16], ps[:, :16]),
             'depth: integer statistics differ')
     require(torch.allclose(ks[:, 16:], ps[:, 16:], rtol=1e-5, atol=1e-3),
             'depth: sums beyond rtol 1e-5')
-    kd, ksc = depth_epilogue(disp, boxes, valid, ks, cfg.depth_crop, bf)
-    pd, psc = depth_epilogue(disp, boxes, valid, ps, cfg.depth_crop, bf)
     require(torch.equal(kd == -1, pd == -1), 'depth: invalid pattern')
     require(torch.allclose(kd, pd, rtol=2e-6, atol=1e-5)
             and torch.allclose(ksc, psc, rtol=2e-6, atol=1e-5),
             'depth: depths beyond rtol 2e-6')
+    # the kernel's vote branch: its depth is the candidate of the plain
+    # version's branch, wherever the three candidates tell them apart
+    flat = boxes.reshape(-1, 4)
+    cand = window_depths(ps, boxes, valid, oh, ow, bf)
+    pbranch = dc.vote_branch(dc.disp_corners(disp, boxes, crop, bf),
+                             dc.f_depth(ps[:, 1].to(torch.int32), bf))
+    kbranch = (cand - kd.reshape(-1, 1)).abs().argmin(1)
+    gap = (cand - cand.gather(1, pbranch[:, None])).abs()
+    gap.scatter_(1, pbranch[:, None], math.inf)
+    told = (kd.reshape(-1) > 0) & (gap.min(1).values > 1e-4)
+    require(torch.equal(kbranch[told], pbranch[told]),
+            'depth: vote branches differ')
+    nvals = ks[:, 0].to(torch.int32)
+    for want in (0, 1, 2):
+        require(bool((nvals == want).any()), f'depth: no box with n={want}')
     n_ok = int((kd > 0).sum())
     require(n_ok > 0, 'depth: no box got a depth')
-    # what these boxes need: each window pixel read once (4 B) and, per
-    # pixel, 16 bisection steps x 7 ranks of a compare and an add on the
-    # CUDA cores (their float32 rate), plus scalars in and rows out
-    px = int((scal[:, 3] * scal[:, 4]).sum())
-    record('depth', float((kd - pd).abs().max()),
-           lambda: depth_cuda.box_depth_stats(disp, scal, cfg.depth_crop, bf),
-           lambda: depth_cuda.box_depth_stats_plain(disp, scal,
-                                                    cfg.depth_crop, bf),
-           bound_ms=bound(4 * px + nbytes(scal, ks), px * 16 * 7 * 2,
-                          PEAK_F32))
-    print(f'depth x{n}: {n_ok} of {boxes.shape[0] * boxes.shape[1]} boxes '
-          f'with a depth, integer statistics exact', flush=True)
-    return res
+
+    # what these boxes need: each window pixel read once, the 16 corner
+    # pixels, boxes and flags in, depth, scale and stats rows out; per
+    # window pixel one exact pass of 7 rank compares and 12 count/sum adds
+    # on the CUDA cores (their float32 rate)
+    _, inside = dc.box_windows(disp, scal, crop)
+    px = int(inside.sum())
+    nb = flat.shape[0]
+    moved = 4 * px + nb * (16 * 4 + 16 + 1) + nbytes(kd, ksc, ks)
+    ops = 19 * px
+
+    def kernel():
+        dc.box_depths(disp, boxes, valid, crop, bf)
+
+    def extraction():
+        extract_box_depths_disp(disp, boxes, valid, cfg.baseline,
+                                cfg.focal_length, crop)
+
+    # the box scalars + epilogue of the plain composite, as eager torch ops
+    # on the card around the kernel's own stats rows: what the kernel now
+    # runs inside (tools/time_depth.py times a parent checkout's own path)
+    def eager():
+        dc.box_scalars(boxes, crop, dc.depth_rmin(bf), oh, ow)
+        dc.depth_epilogue(disp, boxes, valid, ks, crop, bf)
+
+    r = dict(max_abs_err=float((kd - pd).abs().max()),
+             ms=time_ms(kernel, 10 * iters),
+             plain_ms=time_ms(lambda: dc.box_depths_plain(
+                 disp, boxes, valid, crop, bf), iters),
+             library_ms=None)
+    r['bound_ms'], r['bound_by'] = bound(moved, ops, PEAK_F32)
+    r['bound_share'] = r['bound_ms'] / r['ms']
+    r['tops'] = ops / r['ms'] * 1e-9
+    # one whole extraction as the step runs it, and the eager parts,
+    # synchronised
+    for name, fn in (('extraction', extraction), ('eager', eager)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+            torch.cuda.synchronize()
+        r[f'{name}_host_ms'] = (time.perf_counter() - t0) * 1e3 / iters
+    print(f'kernel depth x{n}: max_abs_err {r["max_abs_err"]:.6g}  kernel '
+          f'{r["ms"]:.4f} ms  plain {r["plain_ms"]:.4f} ms  library none  '
+          f'bound {r["bound_ms"]:.4f} ms ({r["bound_by"]}: '
+          f'{moved / 1e6:.2f} MB, {ops / 1e9:.3f} G ops), '
+          f'{100 * r["bound_share"]:.1f}% of the bound', flush=True)
+    print(f'depth x{n}: {nb} boxes, {n_ok} with a depth, {int(told.sum())} '
+          f'vote branches told apart, integer statistics exact; one '
+          f'extraction (extract_box_depths_disp, synchronised) '
+          f'{r["extraction_host_ms"]:.4f} ms host wall; the eager box '
+          f'scalars + epilogue alone {r["eager_host_ms"]:.4f} ms', flush=True)
+
+    def trace():
+        """The kernel's device time in torch.profiler and the kernel
+        launches of one extraction and of the eager parts."""
+        r['device_ms'] = device_ms(kernel, 'box_depths_kernel', 10 * iters)
+        r['extraction_launches'] = len(device_kernels(extraction, 1))
+        r['eager_launches'] = len(device_kernels(eager, 1))
+        print(f'depth x{n}: kernel {r["device_ms"]:.4f} ms device time '
+              f'(torch.profiler; {r["ms"]:.4f} ms per call by CUDA events), '
+              f'{100 * r["bound_ms"] / r["device_ms"]:.1f}% of the bound; '
+              f'{r["extraction_launches"]} kernel launch per extraction, '
+              f'{r["eager_launches"]} for the eager box scalars + epilogue',
+              flush=True)
+        require(r['extraction_launches'] == 1,
+                f'depth: {r["extraction_launches"]} kernel launches per '
+                f'extraction, expected 1')
+
+    return r, trace
 
 
 def check_small_reference(model, device):
@@ -407,13 +572,14 @@ def check_small_reference(model, device):
     each, a dozen times) and the float32 layers after them carry that on;
     tolerance 1e-1 of each output's largest magnitude."""
     import torch
+    from stereotracking_tpu_torch.models.csp_darknet import StageBackends
     from stereotracking_tpu_torch.models.mot import preprocess_raw
     from stereotracking_tpu_torch.models.preprocessor import padded_shape
     img, du = to_card(make_frames(1, 256, 320, SEED + 1), device)
     inputs = preprocess_raw(img, du, *padded_shape(256, 320))
     with torch.no_grad():
-        ker = model.module(inputs, 'cuda', 'cuda')
-        ref = model.module(inputs, 'torch')
+        ker = model.module(inputs, StageBackends(*ALL_KERNELS))
+        ref = model.module(inputs, StageBackends())
     worst = 0.0
     for k, r in zip(sum(ker, []), sum(ref, [])):
         scale = float(r.abs().max())
@@ -493,6 +659,59 @@ def run_slice(model, frames, device):
     return counts, syncs
 
 
+def run_mixed(model, frames, device):
+    """Phase 5b: backend mixes over 2 frames each.  One the JAX builder
+    accepts: the stem and stage-1 kernels with stage 2 on the float32
+    modules.  And a widen-0.25 config (seeded random weights) with every
+    stage 'auto': the stem kernel (O = 16) hands over to the float32 stage
+    1, whose kernel is built for C = 32 only, and the builder warns that
+    'auto' moved stage 1 to the modules (stage 2 follows it there)."""
+    import torch
+    from stereotracking_tpu_torch import _kernels
+    from stereotracking_tpu_torch.apis.builder import build_mot_config
+    from stereotracking_tpu_torch.models.csp_darknet import StageBackends
+    from stereotracking_tpu_torch.models.mot import OCSORTDisparity
+    dev_frames = [to_card([f], device) for f in frames]
+    mixed = flagship_cfg()['model']
+    mixed.update(stem_backend='cuda', stage1_backend='cuda',
+                 stage2_backend='torch')
+    narrow = flagship_cfg()['model']
+    narrow['detector']['backbone']['widen_factor'] = 0.25
+    for what, cfg, module, backends, moved in (
+            ('stem + stage-1 kernels, stage 2-3 modules', mixed,
+             model.module, ('cuda', 'cuda', 'torch', 'torch'), ()),
+            ("widen 0.25, all 'auto'", narrow, None,
+             ('cuda', 'torch', 'torch', 'torch'), ('stage1',))):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            mot = build_mot_config(cfg, device)
+        said = [str(w.message) for w in caught
+                if 'runs on the float32 modules' in str(w.message)]
+        require(mot.backends == StageBackends(*backends),
+                f'{what}: resolved to {mot.backends}')
+        require(sorted(m.split('_backend')[0] for m in said) == list(moved),
+                f'{what}: the builder reported {said}')
+        one = OCSORTDisparity(mot, module=module, device=device, seed=SEED)
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        for f, (img, disp) in enumerate(dev_frames):
+            r = one.track_raw(img[0], disp[0], f)
+            check_result(r, (), mot.tracker.num_dets, f'{what}, frame {f}')
+        torch.cuda.synchronize()
+        counts = _kernels.launch_counts()
+        want = {name: per if b == 'cuda' else 0 for name, per, b in zip(
+            StageBackends._fields, (2, 1, 1, 1), backends)}
+        want['depth'] = 2
+        for name, per in want.items():
+            require(counts[name] == per * len(frames),
+                    f'{what}: {counts[name]} {name} launches over '
+                    f'{len(frames)} frames, expected {per} per frame')
+        for m in said:
+            print(f'mixed backends ({what}): builder: {m}', flush=True)
+        print(f'mixed backends ({what}): {len(frames)} frames, launches '
+              f'{counts}', flush=True)
+
+
 def run_multistream(model, device, single_syncs, profile=False):
     """Phase 6: MultiStreamTracker, 8 streams x 8 steps, stage-3 kernel on."""
     import numpy as np
@@ -502,10 +721,10 @@ def run_multistream(model, device, single_syncs, profile=False):
     from stereotracking_tpu_torch.models.mot import OCSORTDisparity
     from stereotracking_tpu_torch.parallel.multistream import \
         MultiStreamTracker
+    from stereotracking_tpu_torch.models.csp_darknet import StageBackends
     mot = build_mot_config(flagship_cfg('cuda')['model'], device)
-    require(mot.backbone_backend == 'cuda' and mot.stage3_backend == 'cuda',
-            f'multi-stream config: {mot.backbone_backend}, '
-            f'{mot.stage3_backend}')
+    require(mot.backends == StageBackends(*ALL_KERNELS),
+            f'multi-stream config: {mot.backends}')
     ms = MultiStreamTracker(mot, N_STREAMS, module=model.module,
                             device=device)
     streams = [make_frames(N_STEPS, FRAME_H, FRAME_W, 100 + s)
@@ -646,13 +865,18 @@ def main():
     model = build_flagship(device)
     streams = [make_frames(1, FRAME_H, FRAME_W, 100 + s)[0]
                for s in range(N_STREAMS)]
-    check_kernels(model, streams[:1], device)
-    res = check_kernels(model, streams, device)
+    _, trace_one = check_kernels(model, streams[:1], device)
+    res, trace = check_kernels(model, streams, device)
     check_small_reference(model, device)
-    _, single_syncs = run_slice(
-        model, make_frames(N_FRAMES, FRAME_H, FRAME_W, SEED), device)
+    slice_frames = make_frames(N_FRAMES, FRAME_H, FRAME_W, SEED)
+    _, single_syncs = run_slice(model, slice_frames, device)
+    run_mixed(model, slice_frames[:2], device)
     counts, _ = run_multistream(model, device, single_syncs,
                                 profile='--profile' in sys.argv[1:])
+    # the depth kernel's torch.profiler figures, after the timed phases: a
+    # profiler session slows the host work of the process after it
+    trace_one()
+    trace()
     probe_launches, probe, prod = run_probe()
     counts['stage1_variants'] = probe_launches
     res['stage1_variants'] = dict(

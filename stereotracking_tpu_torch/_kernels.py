@@ -50,8 +50,11 @@ _SIGNATURES = {
     # x, n, h, w, cin, cout, mid, nb, weights, sb, b_slice, ms scratch,
     # out, stream
     'st_stage3': (_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P),
-    # disp (n maps), h, w, scal, nbox, crop, bf, out, stream
-    'st_box_depth_stats': (_P, _I, _I, _P, _I, _I, _F, _P, _P),
+    # disp (n maps), n, h, w, boxes, boxes stream stride, valid, valid
+    # stream stride, boxes per stream, crop, bf, rmin, depth, scale, stats,
+    # stream
+    'st_box_depths': (_P, _I, _I, _I, _P, _I, _P, _I, _I, _I, _F, _I, _P,
+                      _P, _P, _P),
 }
 
 
@@ -184,13 +187,14 @@ def stream_ptr(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def require_cuda(name: str, *tensors) -> None:
-    """Raise unless every tensor lies on the same CUDA device and is
-    contiguous (the kernels take dense NHWC / row-major buffers)."""
+def require_cuda(name: str, *tensors, strided=()) -> None:
+    """Raise unless every tensor lies on the same CUDA device and each of
+    ``tensors`` is contiguous (the kernels take dense NHWC / row-major
+    buffers; those in ``strided`` come with strides the kernel is given)."""
     dev = tensors[0].device
-    for t in tensors:
+    for t in (*tensors, *strided):
         if t.device.type != 'cuda' or t.device != dev:
             raise ValueError(f'{name}: every tensor must be on {dev}, '
                              f'got {t.device}')
-        if not t.is_contiguous():
-            raise ValueError(f'{name}: tensors must be contiguous')
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f'{name}: tensors must be contiguous')

@@ -12,7 +12,7 @@ import torch
 from torch import nn
 
 from ..ops.nms import NMSResult, batched_nms, multiclass_candidates
-from .csp_darknet import CSPDarknetDual
+from .csp_darknet import CSPDarknetDual, StageBackends
 from .pafpn import YOLOXPAFPN
 from .yolox_head import YOLOXHead, decode_predictions
 
@@ -45,24 +45,24 @@ class YOLOXDetector(nn.Module):
                                    widen_factor=cfg.widen_factor,
                                    strides=cfg.strides)
 
-    def forward(self, inputs: dict, backend: str = 'torch',
-                stage3_backend: str = 'torch'):
+    def forward(self, inputs: dict,
+                backends: StageBackends = StageBackends()):
         """-> (cls, reg, obj): per-level (S, h, w, C) float32 maps;
         backends as ``CSPDarknetDual.forward``."""
-        feats = self.backbone(inputs, backend, stage3_backend)
+        feats = self.backbone(inputs, backends)
         return self.bbox_head(self.neck(feats))
 
 
 @torch.no_grad()
 def detector_predict(module: YOLOXDetector, inputs: dict,
                      scale_factor: Tuple[float, float] = (1.0, 1.0),
-                     backend: str = 'torch', stage3_backend: str = 'torch'
+                     backends: StageBackends = StageBackends()
                      ) -> NMSResult:
     """Predict for the S frames of ``inputs``: forward + decode + NMS +
     rescale (boxes are divided by ``scale_factor`` = (sf_x, sf_y)), each
     NMSResult field with a leading S."""
     cfg = module.cfg
-    cls, reg, obj = module(inputs, backend, stage3_backend)
+    cls, reg, obj = module(inputs, backends)
     boxes, scores = decode_predictions(cls, reg, obj, cfg.strides)
     fb, fs, fl = multiclass_candidates(boxes, scores, cfg.score_thr)
     res = batched_nms(fb, fs, fl, cfg.nms_iou_thr, cfg.score_thr,

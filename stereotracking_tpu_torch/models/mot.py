@@ -24,6 +24,7 @@ from ..ops.depth import (disp_to_depth, extract_box_depths,
 from ..structures.bbox import scale_bbox
 from ..utils.devices import checked_device
 from . import tracker as trk
+from .csp_darknet import StageBackends
 from .detector import DetectorConfig, YOLOXDetector, detector_predict
 from .preprocessor import padded_shape, preprocess_frame_pure
 
@@ -37,10 +38,9 @@ class MOTConfig(NamedTuple):
     depth_mode: str = 'corner_guided'
     reuse_det_depth: bool = True
     disp_fixed_point: bool = True
-    backbone_backend: str = 'torch'  # 'torch' (float32 modules) | 'cuda'
-                                     # (the stem, stage-1, stage-2 kernels)
-    stage3_backend: str = 'torch'    # 'cuda': stage 3 through its kernel
-                                     # too (needs backbone_backend 'cuda')
+    # per stage, 'torch' (float32 modules) | 'cuda' (its kernel, which
+    # needs the kernel of the stage before it: StageBackends.check)
+    backends: StageBackends = StageBackends()
 
 
 class FrameResult(NamedTuple):
@@ -71,9 +71,7 @@ def predict_frames_batched(module: YOLOXDetector, states: trk.TrackState,
     raw (S, h, w, 3) 'img_u8' / (S, h, w) 'disp_u16' when the stems run as
     kernels); ``frame_ids``: S host ints.  Every FrameResult field has a
     leading S."""
-    det = detector_predict(module, inputs, scale_factor,
-                           backend=cfg.backbone_backend,
-                           stage3_backend=cfg.stage3_backend)
+    det = detector_predict(module, inputs, scale_factor, cfg.backends)
     disp = inputs['disp_postp'][..., 0]
     if cfg.depth_mode == 'corner_guided' and cfg.disp_fixed_point:
         disp = disp.contiguous()

@@ -32,22 +32,40 @@ from __future__ import annotations
 import torch
 
 from .. import _kernels
-from .stage2_cuda import (StageKernel, check_aligned, check_chain_dims,
-                          check_stage_input, nhwc_plain)
+from typing import Optional
+
+from .stage2_cuda import (StageKernel, chain_dims_problem, check_aligned,
+                          check_chain_dims, check_stage_input,
+                          kernel_dims_problem, nhwc_plain)
 
 VARIANTS = ('r16x16_wmma', 'r8x16_wmma', 'r16x16_fma', 'r8x16_fma',
             'r16x16_mma', 'r8x16_mma')
 PRODUCTION = 'r8x16_mma'
 MMA_WIDTHS = (32,)      # C the mma.sync variants are built for
+NUM_BLOCKS = 1          # bottlenecks the kernel runs, as the Pallas kernel
+
+
+def blocks_problem(dims) -> Optional[str]:
+    if dims[3] != NUM_BLOCKS:
+        return (f'the stage-1 kernel supports num_blocks == {NUM_BLOCKS} '
+                f'(deepen_factor <= 0.33), got {tuple(dims)}')
+    return None
+
+
+def dims_problem(dims) -> Optional[str]:
+    """Why ``stage1_dual``'s kernel (``PRODUCTION``) cannot run a stage 1
+    of dims (C_in, C_out, mid, num_blocks), or None."""
+    return (blocks_problem(dims) or kernel_dims_problem(dims)
+            or chain_dims_problem(dims, MMA_WIDTHS))
 
 
 def _check(rgb, dsp, k_rgb: StageKernel, k_dsp: StageKernel):
     if k_rgb.dims != k_dsp.dims:
         raise ValueError(f'branch widths differ: {k_rgb.dims} vs '
                          f'{k_dsp.dims}')
-    if k_rgb.dims[3] != 1:
-        raise ValueError('the stage-1 kernel supports num_blocks == 1 '
-                         '(deepen_factor <= 0.33)')
+    problem = blocks_problem(k_rgb.dims)
+    if problem:
+        raise ValueError(problem)
     check_stage_input('stage1_dual', rgb, k_rgb)
     if dsp.shape != rgb.shape or dsp.dtype != rgb.dtype:
         raise ValueError('both branch inputs must have one shape and dtype')

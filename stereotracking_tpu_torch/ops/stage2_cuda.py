@@ -21,7 +21,7 @@ launch for all S streams: (S, H, W, C_in) -> (S, H/2, W/2, C_out).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -67,14 +67,41 @@ class StageKernel(NamedTuple):
         return self.wts.dims
 
     def check_kernel_dims(self, name: str):
-        if any(c % 16 for c in self.dims[:3]) or not 1 <= self.dims[3] <= 7:
-            raise ValueError(f'{name}: the kernel needs channel counts that '
-                             f'are multiples of 16 and 1-7 blocks, got '
-                             f'{self.dims}')
+        problem = kernel_dims_problem(self.dims)
+        if problem:
+            raise ValueError(f'{name}: {problem}')
 
 
 SLICE = 64   # a weight slice of the stage-2 kernel: SLICE k x SLICE n
 STAGE_CSP_WIDTHS = (32, 64)   # C_in the stage-2 kernel is built for
+MAX_BLOCKS = 7                # bottlenecks a stage kernel runs
+
+
+def kernel_dims_problem(dims) -> Optional[str]:
+    """What the stage kernels need that stage dims (C_in, C_out, mid,
+    num_blocks) lack, or None: channel counts that are multiples of 16 and
+    1 to MAX_BLOCKS blocks."""
+    if any(c % 16 for c in dims[:3]) or not 1 <= dims[3] <= MAX_BLOCKS:
+        return (f'the kernel needs channel counts that are multiples of 16 '
+                f'and 1-{MAX_BLOCKS} blocks, got {tuple(dims)}')
+    return None
+
+
+def chain_dims_problem(dims, widths) -> Optional[str]:
+    """What the mma_chain.cuh kernels built for C_in in ``widths`` need
+    that stage dims lack, or None: C_in = mid = C_out / 2 in ``widths``."""
+    cin, cout, mid, _ = dims
+    if cin not in widths or mid != cin or cout != 2 * cin:
+        return (f'the kernel is built for C_in = mid = C_out / 2 in '
+                f'{tuple(widths)}, got {tuple(dims)}')
+    return None
+
+
+def stage_csp_dims_problem(dims) -> Optional[str]:
+    """Why ``stage_csp``'s kernel cannot run a stage of ``dims``, or
+    None."""
+    return (kernel_dims_problem(dims)
+            or chain_dims_problem(dims, STAGE_CSP_WIDTHS))
 
 
 def gemm_shapes(dims):
@@ -226,10 +253,9 @@ def stage_csp_plain(x: torch.Tensor, k: StageKernel) -> torch.Tensor:
 def check_chain_dims(name: str, k: StageKernel, widths) -> None:
     """Raise unless the stage is C_in = mid = C_out / 2 with C_in in
     ``widths``, the shape the mma_chain.cuh kernels are built for."""
-    cin, cout, mid, _ = k.dims
-    if cin not in widths or mid != cin or cout != 2 * cin:
-        raise ValueError(f'{name}: the kernel is built for C_in = mid = '
-                         f'C_out / 2 in {tuple(widths)}, got {k.dims}')
+    problem = chain_dims_problem(k.dims, widths)
+    if problem:
+        raise ValueError(f'{name}: {problem}')
 
 
 def check_aligned(name: str, *xs: torch.Tensor) -> None:

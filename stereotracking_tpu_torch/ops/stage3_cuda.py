@@ -19,14 +19,24 @@ stage-3 kernel.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from .stage2_cuda import (CHAIN_GEMM, StageKernel, check_aligned,
-                          check_chain_dims, check_stage_input, launch_stage,
-                          slice_offsets, stage_csp_plain)
+from .stage2_cuda import (CHAIN_GEMM, StageKernel, chain_dims_problem,
+                          check_aligned, check_chain_dims, check_stage_input,
+                          kernel_dims_problem, launch_stage, slice_offsets,
+                          stage_csp_plain)
 
 stage3_csp_plain = stage_csp_plain
 STAGE3_WIDTHS = (128,)      # C_in the stage-3 kernel is built for
+
+
+def dims_problem(dims) -> Optional[str]:
+    """Why ``stage3_csp``'s kernel cannot run a stage of dims (C_in, C_out,
+    mid, num_blocks), or None."""
+    return (kernel_dims_problem(dims)
+            or chain_dims_problem(dims, STAGE3_WIDTHS))
 
 
 def stage3_csp(x: torch.Tensor, k: StageKernel) -> torch.Tensor:

@@ -23,7 +23,7 @@ Output: (S, out_h/2, out_w/2, O) bfloat16, NHWC.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -32,6 +32,14 @@ from .. import _kernels
 from ..models.layers import Focus, fold_bn
 
 STEM_WIDTHS = (8, 16, 32, 64)    # output channels the kernel is built for
+
+
+def dims_problem(o: int) -> Optional[str]:
+    """Why the kernel cannot run a stem of ``o`` output channels, or
+    None."""
+    if o not in STEM_WIDTHS:
+        return f'the kernel is built for O in {STEM_WIDTHS}, got O = {o}'
+    return None
 
 
 def stem_k(c: int) -> int:
@@ -107,17 +115,19 @@ def focus_stem(frame: torch.Tensor, wk: torch.Tensor, sb: torch.Tensor,
                          f'{tuple(frame.shape)}')
     n, h, w = frame.shape[:3]
     o = wk.shape[-1]
-    if (wk.dim() != 2 or wk.shape[0] != stem_k(c) or o not in STEM_WIDTHS
+    if (wk.dim() != 2 or wk.shape[0] != stem_k(c)
             or wk.dtype != torch.bfloat16):
-        raise ValueError(f'stem weights must be ({stem_k(c)}, O) bfloat16 '
-                         f'with O in {STEM_WIDTHS}, got {tuple(wk.shape)} '
-                         f'{wk.dtype}')
+        raise ValueError(f'stem weights must be ({stem_k(c)}, O) bfloat16, '
+                         f'got {tuple(wk.shape)} {wk.dtype}')
     if tuple(sb.shape) != (2, o) or sb.dtype != torch.float32:
         raise ValueError(f'stem scale/bias must be (2, {o}) float32')
     if out_h % 2 or out_w % 2 or out_h < h or out_w < w:
         raise ValueError(f'bad padded shape {(out_h, out_w)} for {(h, w)}')
     if frame.device.type == 'cpu':
         return focus_stem_plain(frame, wk, sb, out_h, out_w)
+    problem = dims_problem(o)
+    if problem:
+        raise ValueError(f'focus_stem: {problem}')
     _kernels.require_cuda('focus_stem', frame, wk, sb)
     out = torch.empty((n, out_h // 2, out_w // 2, o),
                       dtype=torch.bfloat16, device=frame.device)

@@ -19,7 +19,6 @@ from stereotracking_tpu_torch.models.mot import init_weights
 from stereotracking_tpu_torch.ops import (depth_cuda, stage1_cuda,
                                           stage2_cuda, stage3_cuda,
                                           stem_cuda)
-from stereotracking_tpu_torch.ops.depth import depth_epilogue
 
 pytestmark = pytest.mark.cuda
 H, W = 96, 160
@@ -247,24 +246,65 @@ def test_stage1_variants(frames, kw, variant):
                                                   kw['disp_stage1']))
 
 
-def test_depth_kernel(dev, frames):
+def _depth_world(dev, frames):
+    """S maps with a zero (n = 0) and an all-equal region, and boxes at
+    every pyramid level of crop 32, with n = 0, 1 and 2, on the equal
+    region, leaving the frame, wider than 800 px, and NaN (invalid)."""
     _, disp_u16 = frames
     disp = torch.nn.functional.pad(
         torch.where(disp_u16.to(torch.int32) == 65535, 0,
                     disp_u16.to(torch.int32)).float() / 16.0, (0, 10, 0, 6))
+    disp[:, 60:80, 100:130] = 0.0
+    disp[:, 20:40, 60:100] = 25.0
+    nan = float('nan')
     boxes = torch.tensor([[3, 4, 40, 30], [10, 10, 150, 90], [-5, 0, 9, 9],
                           [100, 50, 100, 70], [140, 80, 300, 200],
-                          [0, 0, 160, 96]], dtype=torch.float32, device=dev)
-    boxes = torch.stack([boxes + 3 * s for s in range(S)])
-    valid = torch.ones(boxes.shape[:2], dtype=torch.bool, device=dev)
+                          [0, 0, 160, 96], [5, 5, 20, 20], [20, 20, 90, 70],
+                          [102, 62, 125, 78], [50, 50, 51, 51],
+                          [50, 50, 52, 51], [64, 22, 96, 38],
+                          [10, 10, 850, 40], [nan, nan, nan, nan],
+                          [nan, 10, nan, 40]], dtype=torch.float32)
+    boxes = torch.stack([boxes + 3 * s for s in range(S)]).to(dev)
+    valid = torch.isfinite(boxes).all(2)
+    return disp, boxes, valid
+
+
+@pytest.mark.parametrize('crop', [32, 96, 128])
+def test_depth_kernel(dev, frames, crop):
+    """The fused kernel (box scalars, stats, corner vote) against its plain
+    composite: integer statistics and the -1 pattern exact; sums within
+    rtol 1e-5 (float32 reassociation), depths and scales within rtol 2e-6,
+    atol 1e-5 (which holds the vote branch too wherever the three rank
+    windows give depths further apart; chip_smoke.py checks the branches
+    one by one)."""
+    disp, boxes, valid = _depth_world(dev, frames)
     bf = 160.0
-    scal = depth_cuda.box_scalars(boxes, 32, depth_cuda.depth_rmin(bf),
-                                  H, W)
-    ks = depth_cuda.box_depth_stats(disp, scal, 32, bf)
-    ps = depth_cuda.box_depth_stats_plain(disp, scal, 32, bf)
+    before = _kernels.launch_counts()['depth']
+    kd, ksc, ks = depth_cuda.box_depths(disp, boxes, valid, crop, bf)
+    assert _kernels.launch_counts()['depth'] == before + 1
+    pd, psc, ps = depth_cuda.box_depths_plain(disp, boxes, valid, crop, bf)
+    torch.cuda.synchronize()
+    assert kd.shape == ksc.shape == (S, boxes.shape[1])
     assert torch.equal(ks[:, :16], ps[:, :16])
     assert torch.allclose(ks[:, 16:], ps[:, 16:], rtol=1e-5, atol=1e-3)
-    kd, _ = depth_epilogue(disp, boxes, valid, ks, 32, bf)
-    pd, _ = depth_epilogue(disp, boxes, valid, ps, 32, bf)
-    assert kd.shape == (S, boxes.shape[1])
+    assert torch.equal(kd == -1, pd == -1)
     assert torch.allclose(kd, pd, rtol=2e-6, atol=1e-5)
+    assert torch.allclose(ksc, psc, rtol=2e-6, atol=1e-5)
+    ok = kd.reshape(-1) > 0
+    assert {0, 1, 2} <= set(ks[:, 0].to(torch.int32).tolist())
+    assert int(ok.sum()) >= 6
+
+
+def test_depth_kernel_strided_boxes(dev, frames):
+    """The step hands the kernel views of the detector's slots: boxes and
+    flags with a stream stride of their own give the same results."""
+    disp, boxes, valid = _depth_world(dev, frames)
+    wide_b = torch.zeros((S, 20, 4), device=dev)
+    wide_v = torch.zeros((S, 20), dtype=torch.bool, device=dev)
+    nb = boxes.shape[1]
+    wide_b[:, :nb], wide_v[:, :nb] = boxes, valid
+    got = depth_cuda.box_depths(disp, wide_b[:, :nb], wide_v[:, :nb], 32,
+                                160.0)
+    want = depth_cuda.box_depths(disp, boxes, valid, 32, 160.0)
+    for g, w_ in zip(got, want):
+        assert torch.equal(g, w_)

@@ -19,6 +19,7 @@ from stereotracking_tpu.ops.stage2_pallas import pallas_stage2_out, unfold_w
 from stereotracking_tpu.ops.stem_pallas import (pallas_stem_outputs,
                                                 stem_pack_device,
                                                 stem_pack_disp_device)
+from stereotracking_tpu_torch.models.csp_darknet import StageBackends
 from stereotracking_tpu_torch.ops import stage1_cuda, stage2_cuda, stem_cuda
 from test_torch_port_bridge import (H, W, WIDEN, port_detector,
                                     random_frame, random_variables)
@@ -157,7 +158,7 @@ def test_kernel_path_detector_matches_jax_kernel_path(world):
               'img_u8': torch.from_numpy(img)[None],
               'disp_u16': torch.from_numpy(disp)[None]}
     with torch.no_grad():
-        out = det(inputs, 'cuda')
+        out = det(inputs, StageBackends('cuda', 'cuda', 'cuda'))
     for rl, ol in zip(ref, out):
         for r, o in zip(rl, ol):
             r = np.asarray(r)

@@ -19,6 +19,7 @@ import torch
 from stereotracking_tpu.apis.builder import build_model as j_build_model
 from stereotracking_tpu.config import load_config
 from stereotracking_tpu_torch.apis.builder import build_model
+from stereotracking_tpu_torch.models.csp_darknet import StageBackends
 from test_torch_port_bridge import H, W, WIDEN, random_frame, random_variables
 
 CONFIG = 'configs/stereo_tracking/ocsort/yolox_s_airdrone_disp.py'
@@ -45,7 +46,7 @@ def test_track_raw_matches_jax_over_frames():
     assert jm.cfg.reuse_det_depth is False and jm.cfg.stem_backend == 'xla'
     tm = build_model(_cfg(), device='cpu')
     assert tm.cfg.reuse_det_depth is False
-    assert tm.cfg.backbone_backend == 'torch'
+    assert tm.cfg.backends == StageBackends()
     from stereotracking_tpu_torch.utils.convert import flax_to_state_dict
     tm.module.load_state_dict(flax_to_state_dict(variables))
     img0, disp0 = random_frame(11)

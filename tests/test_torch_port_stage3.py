@@ -29,6 +29,7 @@ from stereotracking_tpu.ops.stem_pallas import (pallas_stem_outputs,
                                                 stem_pack_device,
                                                 stem_pack_disp_device)
 from stereotracking_tpu_torch.apis.builder import build_mot_config
+from stereotracking_tpu_torch.models.csp_darknet import StageBackends
 from stereotracking_tpu_torch.ops import stage3_cuda
 from test_torch_port_bridge import (H, W, WIDEN, port_detector,
                                     random_frame, random_variables)
@@ -91,7 +92,7 @@ def test_detector_with_stage3_kernel_matches_jax():
               'img_u8': torch.from_numpy(img)[None],
               'disp_u16': torch.from_numpy(disp)[None]}
     with torch.no_grad():
-        out = port_detector(v)(inputs, 'cuda', 'cuda')
+        out = port_detector(v)(inputs, StageBackends(*['cuda'] * 4))
     for rl, ol in zip(ref, out):
         for r, o in zip(rl, ol):
             r = np.asarray(r, np.float32)
@@ -108,18 +109,18 @@ def test_builder_stage3_backend_key():
              'stage1_backend': 'pallas', 'stage2_backend': 'pallas',
              'stage3_backend': 'pallas'}
     assert j_build(every).stage3_backend == 'pallas'
-    assert build_mot_config(every, device='cpu').stage3_backend == 'cuda'
+    assert build_mot_config(every, device='cpu').backends.stage3 == 'cuda'
     cuda = {k: 'cuda' if k.endswith('backend') else v
             for k, v in every.items()}
-    assert build_mot_config(cuda, device='cpu').stage3_backend == 'cuda'
+    assert build_mot_config(cuda, device='cpu').backends.stage3 == 'cuda'
     for cfg in ({'type': 'OCSORT_Disparity'},
                 {'type': 'OCSORT_Disparity', 'stage3_backend': 'auto'},
                 {**every, 'stage3_backend': 'auto'}):
         assert j_build(cfg).stage3_backend == 'xla'
-        assert build_mot_config(cfg, device='cpu').stage3_backend == 'torch'
+        assert build_mot_config(cfg, device='cpu').backends.stage3 == 'torch'
     for key in ('pallas', 'cuda'):
         lone = {'type': 'OCSORT_Disparity', 'stage3_backend': key}
-        with pytest.raises(ValueError, match='stage-2 kernel'):
+        with pytest.raises(ValueError, match="requires stage2_backend='cuda'"):
             build_mot_config(lone, device='cpu')
     with pytest.raises(ValueError):
         j_build({'type': 'OCSORT_Disparity', 'stage3_backend': 'pallas'})
