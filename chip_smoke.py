@@ -44,7 +44,22 @@ Phases, in order; any failure exits non-zero:
    host syncs per step no more than the single-stream frame's; stream 0
    over the first 3 steps equal to a single-stream run of its frames (ids
    and validity exact, boxes within 1e-2 px);
-7. probe: the stage-1 kernel's six variants at 8 streams, each held to
+7. bf16: phase 6's 8 steps of 8 streams again with the detector's module
+   layers computing in bf16 (``MultiStreamTracker(dtype=torch.bfloat16)``,
+   the same weights); ms per step and stereo pairs/s beside phase 6's;
+   launch counts as in phase 6; host syncs per step no more than the
+   single-stream frame's; outputs finite; printed as findings, not
+   checks: the largest bf16 - float32 difference of the head maps on one
+   frame and how many of stream 0's track slots differ over 3 steps;
+8. eval: the eval CLI's loop (``stereotracking_tpu_torch.tools.test.
+   evaluate``) over 2 videos x 6 frames of 1080x1920 held in memory (ground
+   truth: the rectangles ``make_frames`` draws), weights through
+   ``init_model`` from a ``.pth`` written to a temporary directory;
+   sequentially and with ``--streams 2 --stage-frames``, in float32 and with
+   ``--bf16``: the count metrics of the two loops must be equal; pairs/s
+   and host syncs per step; then ``inference_mot`` over 2 frames must
+   equal ``track_raw`` (ids exact, boxes within 1e-3 px);
+9. probe: the stage-1 kernel's six variants at 8 streams, each held to
    the plain version and timed (``tools/probe_stage1_variants.py``), the
    production one beside the wmma 16x16 region it replaced.
 
@@ -110,9 +125,11 @@ def require(cond, msg):
         raise SmokeFailure(msg)
 
 
-def make_frames(n, h, w, seed):
+def make_frames(n, h, w, seed, with_boxes=False):
     """Synthetic raw frames as ``bench.py`` makes them: noise, six bright
-    rectangles with constant disparity, invalid (65535) upper half."""
+    rectangles with constant disparity, invalid (65535) upper half.  With
+    ``with_boxes`` each frame also gives its rectangles as (6, 4) float32
+    xyxy boxes and their (6,) raw disparities, in drawing order."""
     import numpy as np
     rng = np.random.RandomState(seed)
     frames = []
@@ -120,11 +137,16 @@ def make_frames(n, h, w, seed):
         img = rng.randint(0, 255, (h, w, 3), np.uint8)
         disp = np.full((h, w), 65535, np.uint16)
         disp[h // 2:] = rng.randint(16, 1600, (h - h // 2, w), np.uint16)
+        boxes, raw = [], []
         for _ in range(6):
             x, y = rng.randint(0, w - 60), rng.randint(0, h - 40)
             img[y:y + 30, x:x + 40] = rng.randint(100, 255, 3, np.uint8)
-            disp[y:y + 30, x:x + 40] = rng.randint(40, 800)
-        frames.append((img, disp))
+            d = rng.randint(40, 800)
+            disp[y:y + 30, x:x + 40] = d
+            boxes.append((x, y, x + 40, y + 30))
+            raw.append(d)
+        frames.append((img, disp, np.asarray(boxes, np.float32),
+                       np.asarray(raw)) if with_boxes else (img, disp))
     return frames
 
 
@@ -787,7 +809,8 @@ def run_multistream(model, device, single_syncs, profile=False):
     if profile:
         profile_steps(ms, steps)
     return counts, dict(ms_per_step=med, pairs_per_s=N_STREAMS / med * 1e3,
-                        syncs_per_step=syncs)
+                        syncs_per_step=syncs, results=results[:N_PARITY],
+                        steps=steps)
 
 
 def profile_steps(ms, steps):
@@ -808,6 +831,244 @@ def profile_steps(ms, steps):
           f'{total:.0f} us', flush=True)
     for us, cnt, key in rows[:40]:
         print(f'profile: {us:12.1f} us {cnt:6d}x {key[:90]}', flush=True)
+
+
+def run_bf16(model, device, single_syncs, f32):
+    """Phase 8: the multi-stream phase's 8 steps of 8 streams again with
+    the detector's module layers in bf16 (``dtype=torch.bfloat16``, the
+    same weights), beside phase 6's float32 numbers.  Launches as in
+    float32; host syncs per step no more than the single-stream frame's;
+    outputs finite.  Findings, not checks: the largest bf16 - float32
+    difference of the head maps on one frame, and how many of stream 0's
+    track ids differ from the float32 run over its first steps."""
+    import torch
+    from stereotracking_tpu_torch import _kernels
+    from stereotracking_tpu_torch.apis.builder import build_mot_config
+    from stereotracking_tpu_torch.models.csp_darknet import StageBackends
+    from stereotracking_tpu_torch.models.detector import YOLOXDetector
+    from stereotracking_tpu_torch.models.mot import preprocess_raw
+    from stereotracking_tpu_torch.models.preprocessor import padded_shape
+    from stereotracking_tpu_torch.parallel.multistream import \
+        MultiStreamTracker
+    bf16 = torch.bfloat16
+    mot = build_mot_config(flagship_cfg('cuda')['model'], device)
+    require(mot.backends == StageBackends(*ALL_KERNELS),
+            f'bf16 config: {mot.backends}')
+    det = YOLOXDetector(mot.detector, dtype=bf16)
+    det.load_state_dict(model.module.state_dict())
+    ms = MultiStreamTracker(mot, N_STREAMS, module=det, device=device,
+                            dtype=bf16)
+    steps = f32['steps']
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    per_step, results = [], []
+    for t, (imgs, disps) in enumerate(steps):
+        t0 = time.perf_counter()
+        r = ms.track_raw(imgs, disps, [t] * N_STREAMS)
+        torch.cuda.synchronize()
+        per_step.append((time.perf_counter() - t0) * 1e3)
+        results.append(r)
+    counts = _kernels.launch_counts()
+    want = {'stem': 2, 'stage1': 1, 'stage2': 1, 'stage3': 1, 'depth': 2}
+    for name, per in want.items():
+        require(counts[name] == per * N_STEPS,
+                f'bf16 {name}: {counts[name]} launches over {N_STEPS} '
+                f'steps, expected {per} per step')
+    for t, r in enumerate(results):
+        check_result(r, (N_STREAMS,), mot.tracker.num_dets, f'bf16 step {t}')
+    syncs = count_syncs(lambda: ms.track_raw(*steps[0], [N_STEPS] * N_STREAMS))
+    require(syncs <= single_syncs,
+            f'bf16: {syncs} host syncs per step > {single_syncs} of the '
+            f'single-stream frame')
+    steady = sorted(per_step[2:])
+    med = steady[len(steady) // 2]
+    print(f'bf16: {N_STREAMS} streams x {N_STEPS} steps of {FRAME_H}x'
+          f'{FRAME_W}, launches {counts}, ms/step first two '
+          f'{per_step[0]:.2f} {per_step[1]:.2f}, steps 2-{N_STEPS - 1} median '
+          f'{med:.2f} ({N_STREAMS / med * 1e3:.1f} stereo pairs/s); float32 '
+          f'(phase 6, this run) {f32["ms_per_step"]:.2f} ms/step '
+          f'({f32["pairs_per_s"]:.1f} stereo pairs/s); host syncs per step '
+          f'{syncs} (single stream {single_syncs})', flush=True)
+
+    img, disp = steps[0][0][:1], steps[0][1][:1]
+    inputs = preprocess_raw(img, disp, *padded_shape(*img.shape[1:3]))
+    with torch.no_grad():
+        hb = det(inputs, mot.backends)
+        hf = model.module(inputs, mot.backends)
+    for name, b, f in zip(('cls', 'reg', 'obj'), hb, hf):
+        err = max(float((x.float() - y).abs().max()) for x, y in zip(b, f))
+        top = max(float(y.abs().max()) for y in f)
+        print(f'bf16 finding: head {name} maps, one {FRAME_H}x{FRAME_W} '
+              f'frame: largest |bf16 - float32| {err:.4g} (largest '
+              f'|float32| {top:.4g})', flush=True)
+    differ = total = 0
+    for rb, rf in zip(results, f32['results']):
+        vb, vf = rb.track_valid[0], rf.track_valid[0]
+        both = vb | vf
+        total += int(both.sum())
+        differ += int((both & ((vb != vf) | (rb.track_ids[0]
+                                             != rf.track_ids[0]))).sum())
+    print(f'bf16 finding: stream 0 over {len(f32["results"])} steps: '
+          f'{differ} of {total} track slots differ in id or validity from '
+          f'the float32 run', flush=True)
+    return dict(ms_per_step=med, pairs_per_s=N_STREAMS / med * 1e3,
+                syncs_per_step=syncs)
+
+
+class MemoryDataset:
+    """Videos of ``make_frames`` frames held in memory, with the reader
+    interface ``tools/test.evaluate`` takes.  Ground truth: each frame's
+    six rectangles, id = drawing order + 100 x video, Z from their
+    disparity (focal x baseline / (raw / 16))."""
+
+    def __init__(self, n_videos, n_frames, h, w, bf):
+        import numpy as np
+        self.h, self.w, self.bf = h, w, bf
+        self.frames = {}
+        self.vids = {}
+        for v in range(n_videos):
+            ids = []
+            for t, f in enumerate(make_frames(n_frames, h, w, 300 + v,
+                                              with_boxes=True)):
+                img_id = 1000 * v + t
+                self.frames[img_id] = (v,) + f
+                ids.append(img_id)
+            self.vids[v] = ids
+        self._np = np
+
+    def videos(self):
+        return sorted(self.vids)
+
+    def video_name(self, vid):
+        return f'mem{vid:02d}'
+
+    def video_frames(self, vid):
+        return self.vids[vid]
+
+    def frame_info(self, img_id):
+        np = self._np
+        v, _, _, boxes, raw = self.frames[img_id]
+        n = len(boxes)
+        return dict(img_id=img_id, height=self.h, width=self.w,
+                    gt_bboxes=boxes, gt_labels=np.zeros(n, np.int64),
+                    gt_instance_ids=np.arange(n) + 100 * v,
+                    gt_locations=np.stack([np.zeros(n), np.zeros(n),
+                                           self.bf / (raw / 16.0)], 1))
+
+    def load_frame(self, img_id):
+        np = self._np
+        _, img, disp, _, _ = self.frames[img_id]
+        sample = self.frame_info(img_id)
+        sample['img'] = img
+        sample['disp_mask'] = (disp < 65535).astype(np.float32)
+        sample['disp_postp'] = np.where(disp == 65535, 0, disp).astype(
+            np.float32) / 16.0
+        return sample
+
+
+def run_eval(model, device):
+    """Phase 9: the eval CLI's loop (``tools/test.evaluate``) on a dataset
+    held in memory (2 videos x 6 frames of 1080x1920, ``img_scale`` the
+    frame size), with the flagship config and ``init_model`` weights from a
+    ``.pth`` written from the phases' model; sequentially and with
+    ``--streams 2 --stage-frames``, in float32 and with ``--bf16``; pairs/s
+    and host syncs per step printed.  The count metrics of the two loops
+    must be equal: in float32 as run; in bf16 with cuDNN off, since cuDNN's
+    bf16 convolutions round differently at batch 1 and 2 (the bf16 runs
+    with cuDNN print how far they differ, a finding).  Then ``inference_mot`` over 2 frames must equal
+    ``track_raw`` on them (ids exact, boxes within 1e-3 px)."""
+    import contextlib
+    import tempfile
+
+    import numpy as np
+    import torch
+    from stereotracking_tpu_torch.apis.inference import (inference_mot,
+                                                         init_model)
+    from stereotracking_tpu_torch.evaluation import (CocoMAPEvaluator,
+                                                     MOTDroneMetrics)
+    from stereotracking_tpu_torch.models.mot import (OCSORTDisparity,
+                                                     result_to_host)
+    from stereotracking_tpu_torch.tools import test as cli
+    cfg = flagship_cfg()
+    cfg['img_scale'] = (FRAME_H, FRAME_W)
+    bf = float(cfg['model']['baseline']) * float(cfg['model']['focal_length'])
+    data = MemoryDataset(2, 6, FRAME_H, FRAME_W, bf)
+    videos = data.videos()
+    counts = ('CLR_TP', 'CLR_FP', 'CLR_FN', 'IDSW', 'MOTA', 'IDF1')
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        pth = os.path.join(tmp, 'flagship.pth')
+        torch.save({'state_dict': {
+            f'detector.{k}': v.cpu()
+            for k, v in model.module.state_dict().items()
+            if not k.startswith(('backbone.disp_stem', 'backbone.disp_stage1'))
+        }, 'meta': {'seed': SEED}}, pth)
+        for dtype in ('float32', 'bf16'):
+            flags = ['--bf16'] if dtype == 'bf16' else []
+            m = init_model(cfg, pth, device=device,
+                           dtype=torch.bfloat16 if flags else None)
+            # bf16: cuDNN's bf16 convolutions round differently at batch 1
+            # and 2 (tools/batch_invariance.py), so the loops' equality is
+            # held with cuDNN off, PyTorch's batch-invariant convolutions
+            for cudnn in ((True,) if dtype == 'float32' else (True, False)):
+                got = {}
+                for mode, extra in (('sequential', []),
+                                    ('streams 2', ['--streams', '2',
+                                                   '--stage-frames'])):
+                    args = cli.parse_args([CONFIG, '--device', str(device),
+                                           '--work-dir', tmp] + flags + extra)
+
+                    def run():
+                        mot = MOTDroneMetrics(outfile_dir=tmp)
+                        coco = CocoMAPEvaluator(num_classes=1)
+                        with (contextlib.nullcontext() if cudnn else
+                              torch.backends.cudnn.flags(enabled=False)):
+                            n, el = cli.evaluate(m, data, videos, args,
+                                                 cfg['img_scale'], mot, coco)
+                        return n, el, {**mot.evaluate(), **coco.evaluate()}
+
+                    n, elapsed, metrics = run()
+                    n_steps = 12 if mode == 'sequential' else 6 + 1  # warm-up
+                    syncs = count_syncs(run) / n_steps
+                    require(n == 12, f'eval {dtype} {mode}: {n} frames scored')
+                    got[mode] = metrics
+                    what = f'{dtype} {mode}' + ('' if cudnn else ', cuDNN off')
+                    out[what] = dict(pairs_per_s=n / elapsed,
+                                     syncs_per_step=syncs)
+                    print(f'eval {what}: {n} frames of {FRAME_H}x{FRAME_W} in '
+                          f'{elapsed * 1e3:.1f} ms = {n / elapsed:.1f} stereo '
+                          f'pairs/s; host syncs per step {syncs:.2f} (torch '
+                          f'sync debug mode) + 1 result fetch; '
+                          + ', '.join(f'{k} {metrics[k]:.4f}' for k in counts),
+                          flush=True)
+                apart = [k for k in counts
+                         if got['sequential'][k] != got['streams 2'][k]]
+                if dtype == 'bf16' and cudnn:
+                    print(f'eval finding: bf16 with cuDNN, sequential and '
+                          f'streams 2 differ in {apart or "none"} of {counts}',
+                          flush=True)
+                    continue
+                require(not apart, f'eval {dtype}' + (
+                    '' if cudnn else ' (cuDNN off)') + f': {apart} differ: '
+                    f'sequential {got["sequential"]}, streams 2 '
+                    f'{got["streams 2"]}')
+
+    # inference_mot against track_raw on the same frames and weights
+    ref = OCSORTDisparity(m.cfg, module=m.module, device=device)
+    for f, img_id in enumerate(data.video_frames(videos[0])[:2]):
+        _, img, disp, _, _ = data.frames[img_id]
+        a = inference_mot(m, img, disp, f)['track_instances']
+        b = result_to_host(ref.track_raw(img, disp, f))
+        tv = b.track_valid
+        require(np.array_equal(a['instances_id'], b.track_ids[tv]),
+                f'inference_mot frame {f}: ids differ from track_raw')
+        err = float(np.abs(a['bboxes'] - b.track_bboxes[tv]).max(
+            initial=0.0))
+        require(err <= 1e-3, f'inference_mot frame {f}: boxes off '
+                f'track_raw by {err} px')
+    print('eval: inference_mot equals track_raw over 2 frames (ids exact, '
+          'boxes within 1e-3 px)', flush=True)
+    return out
 
 
 def run_probe():
@@ -871,8 +1132,11 @@ def main():
     slice_frames = make_frames(N_FRAMES, FRAME_H, FRAME_W, SEED)
     _, single_syncs = run_slice(model, slice_frames, device)
     run_mixed(model, slice_frames[:2], device)
-    counts, _ = run_multistream(model, device, single_syncs,
-                                profile='--profile' in sys.argv[1:])
+    counts, f32 = run_multistream(model, device, single_syncs,
+                                  profile='--profile' in sys.argv[1:])
+    run_bf16(model, device, single_syncs, f32)
+    del f32
+    run_eval(model, device)
     # the depth kernel's torch.profiler figures, after the timed phases: a
     # profiler session slows the host work of the process after it
     trace_one()

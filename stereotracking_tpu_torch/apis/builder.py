@@ -158,12 +158,14 @@ def build_mot_config(model_cfg: Dict[str, Any], device='cuda') -> MOTConfig:
 
 def build_model(cfg: Dict[str, Any], device='cuda',
                 module: Optional[YOLOXDetector] = None,
-                seed: int = 0) -> OCSORTDisparity:
+                seed: int = 0, dtype=None) -> OCSORTDisparity:
     """cfg: a full config dict with a 'model' entry; the model lives on
     ``device`` (the card unless the caller asks for the CPU).  Without
     ``module`` the detector gets seeded random weights
-    (``models.mot.init_weights``).
+    (``models.mot.init_weights``); ``dtype`` is its compute dtype (float32
+    unless given, as the JAX ``build_model``).
     The per-box depth statistics run through the depth kernel wrapper
     whatever ``depth_backend`` says: CUDA tensors launch the kernel."""
     mot = build_mot_config(cfg['model'], device)
-    return OCSORTDisparity(mot, module=module, device=device, seed=seed)
+    return OCSORTDisparity(mot, module=module, device=device, seed=seed,
+                           dtype=dtype)

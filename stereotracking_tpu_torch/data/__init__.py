@@ -1,0 +1,3 @@
+from .coco_video import CocoVideo  # noqa: F401
+from .datasets import CocoDispDataset, MOTDispDataset  # noqa: F401
+from .loader import PrefetchIterator  # noqa: F401

@@ -6,14 +6,17 @@ stages 2-4 (SPPF in the last).  Module names follow mmyolo
 (``stem``, ``stageN.{0,1[,2]}``, ``disp_stem``, ``disp_stage1``).
 
 Backends, one per stage (``StageBackends``): ``'torch'`` evaluates the
-float32 modules (the JAX package's XLA path); ``'cuda'`` evaluates the
-stage through its fused kernel (ops/*_cuda.py), which works in bf16 NHWC.
-Each kernel consumes the previous kernel's output, so a stage's kernel
-needs the kernel of the stage before it (stem -> stage 1 -> stage 2 ->
-stage 3), as in the JAX detector; where a kernel hands over to the float32
-modules, its bf16 NHWC output becomes NCHW float32.  Every kernel takes the
-S frames of a batch in one launch.  A kernel wrapper given a CPU tensor
-runs its plain PyTorch version.
+modules in the compute ``dtype`` (the JAX package's XLA path; float32 by
+default, bfloat16 as the JAX ``dtype=jnp.bfloat16``); ``'cuda'`` evaluates
+the stage through its fused kernel (ops/*_cuda.py), which works in bf16
+NHWC whatever ``dtype`` says.  Each kernel consumes the previous kernel's
+output, so a stage's kernel needs the kernel of the stage before it (stem
+-> stage 1 -> stage 2 -> stage 3), as in the JAX detector; where a kernel
+hands over to the modules, its bf16 NHWC output becomes an NCHW view in
+``dtype``: float32 a converted copy, bfloat16 the kernel's own tensor
+(channels-last, as cuDNN's bf16 convolutions take it).  Every kernel takes
+the S frames of a batch in one launch.  A kernel wrapper given a CPU
+tensor runs its plain PyTorch version.
 """
 from __future__ import annotations
 
@@ -79,25 +82,28 @@ def backbone_dims(deepen_factor: float, widen_factor: float
 
 
 def _stage(cin: int, cout: int, num_blocks: int, add_identity: bool,
-           use_spp: bool, spp_kernel_sizes) -> nn.Sequential:
-    layers = [ConvBNAct(cin, cout, 3, 2)]
+           use_spp: bool, spp_kernel_sizes, dtype) -> nn.Sequential:
+    layers = [ConvBNAct(cin, cout, 3, 2, dtype=dtype)]
     if use_spp:
-        layers.append(SPPFBottleneck(cout, cout, spp_kernel_sizes))
-    layers.append(CSPLayer(cout, cout, num_blocks, add_identity))
+        layers.append(SPPFBottleneck(cout, cout, spp_kernel_sizes,
+                                     dtype=dtype))
+    layers.append(CSPLayer(cout, cout, num_blocks, add_identity, dtype=dtype))
     return nn.Sequential(*layers)
 
 
 class CSPDarknetDual(nn.Module):
     def __init__(self, deepen_factor: float = 0.33,
                  widen_factor: float = 0.5,
-                 spp_kernel_sizes: Tuple[int, ...] = (5, 9, 13)):
+                 spp_kernel_sizes: Tuple[int, ...] = (5, 9, 13),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         stem_ch, dims = backbone_dims(deepen_factor, widen_factor)
-        self.stem = Focus(3, stem_ch)
-        self.disp_stem = Focus(3, stem_ch)
+        self.stem = Focus(3, stem_ch, dtype=dtype)
+        self.disp_stem = Focus(3, stem_ch, dtype=dtype)
         for i, ((cin, cout, _, n), (_, _, _, ident, spp)) in enumerate(
                 zip(dims, P5_ARCH)):
-            args = (cin, cout, n, ident, spp, spp_kernel_sizes)
+            args = (cin, cout, n, ident, spp, spp_kernel_sizes, dtype)
             setattr(self, f'stage{i + 1}', _stage(*args))
             if i == 0:
                 self.disp_stage1 = _stage(*args)
@@ -126,9 +132,10 @@ class CSPDarknetDual(nn.Module):
                 backends: StageBackends = StageBackends()):
         """``inputs``: 'img' and 'disp_postp' (S, H, W, 3) float32; with
         the stem kernels also the raw frames 'img_u8' (S, h, w, 3) and
-        'disp_u16' (S, h, w).  Returns the (stage 2, 3, 4) NCHW float32
-        features."""
+        'disp_u16' (S, h, w).  Returns the (stage 2, 3, 4) NCHW features
+        in the compute dtype."""
         backends.check()        # a kernel runs only after its predecessor's
+        dt = self.dtype
         if backends.stem == 'cuda':
             kw = self.kernel_weights()
             oh, ow = inputs['img'].shape[1:3]
@@ -141,18 +148,20 @@ class CSPDarknetDual(nn.Module):
             y = stage1_dual(rgb, dsp, kw['stage1'], kw['disp_stage1'])
         else:
             if backends.stem == 'cuda':
-                rgb, dsp = _nchw(rgb), _nchw(dsp)
+                rgb, dsp = _nchw(rgb, dt), _nchw(dsp, dt)
             y = (self.stage1(rgb) + self.disp_stage1(dsp)) / 2.0
         if backends.stage2 == 'cuda':
             y2k = stage_csp(y, kw['stage2'])
-            y2 = _nchw(y2k)
+            y2 = _nchw(y2k, dt)
         else:
-            y2 = self.stage2(_nchw(y) if backends.stage1 == 'cuda' else y)
-        y3 = (_nchw(stage3_csp(y2k, kw['stage3']))
+            y2 = self.stage2(_nchw(y, dt) if backends.stage1 == 'cuda'
+                             else y)
+        y3 = (_nchw(stage3_csp(y2k, kw['stage3']), dt)
               if backends.stage3 == 'cuda' else self.stage3(y2))
         return y2, y3, self.stage4(y3)
 
 
-def _nchw(y: torch.Tensor) -> torch.Tensor:
-    """A kernel's (S, H, W, C) bf16 output as an NCHW float32 view."""
-    return y.float().permute(0, 3, 1, 2)
+def _nchw(y: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A kernel's (S, H, W, C) bf16 output as an NCHW view in ``dtype``
+    (channels-last strides; no copy when ``dtype`` is bf16)."""
+    return y.to(dtype).permute(0, 3, 1, 2)

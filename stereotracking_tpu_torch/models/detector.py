@@ -30,24 +30,29 @@ class DetectorConfig(NamedTuple):
 
 
 class YOLOXDetector(nn.Module):
-    """Dual-branch backbone -> PAFPN -> decoupled head (mm key names)."""
+    """Dual-branch backbone -> PAFPN -> decoupled head (mm key names).
+    Parameters are float32; the layers that run on the modules compute in
+    ``dtype`` (the JAX ``YOLOXDetector.dtype``)."""
 
-    def __init__(self, cfg: DetectorConfig = DetectorConfig()):
+    def __init__(self, cfg: DetectorConfig = DetectorConfig(),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if cfg.backbone != 'dual':
             raise NotImplementedError(
                 f'backbone {cfg.backbone!r} is not ported (only dual)')
         self.cfg = cfg
-        self.backbone = CSPDarknetDual(cfg.deepen_factor, cfg.widen_factor)
+        self.dtype = dtype
+        self.backbone = CSPDarknetDual(cfg.deepen_factor, cfg.widen_factor,
+                                       dtype=dtype)
         self.neck = YOLOXPAFPN(deepen_factor=cfg.deepen_factor,
-                               widen_factor=cfg.widen_factor)
+                               widen_factor=cfg.widen_factor, dtype=dtype)
         self.bbox_head = YOLOXHead(num_classes=cfg.num_classes,
                                    widen_factor=cfg.widen_factor,
-                                   strides=cfg.strides)
+                                   strides=cfg.strides, dtype=dtype)
 
     def forward(self, inputs: dict,
                 backends: StageBackends = StageBackends()):
-        """-> (cls, reg, obj): per-level (S, h, w, C) float32 maps;
+        """-> (cls, reg, obj): per-level (S, h, w, C) maps in ``dtype``;
         backends as ``CSPDarknetDual.forward``."""
         feats = self.backbone(inputs, backends)
         return self.bbox_head(self.neck(feats))

@@ -6,8 +6,16 @@ Port of the canonical blocks of ``stereotracking_tpu/models/layers.py``:
 Module and parameter names follow the mmdet/mmyolo modules, so a reference
 ``.pth`` state dict loads with ``load_state_dict``.
 
-Inference only: BatchNorm is folded into a per-channel (scale, bias) pair
-applied after the convolution, as the fused kernels apply it.
+Inference only.  Every block takes a compute ``dtype``, float32 by
+default, as the Flax modules do: the parameters and BatchNorm statistics
+stay float32 and the compute runs in ``dtype``.  In float32, BatchNorm is
+folded into a per-channel (scale, bias) pair applied after the convolution,
+as the fused kernels apply it.  In another dtype (bfloat16) a ``ConvBNAct``
+rounds to ``dtype`` where Flax's ``ConvBNAct`` does (``conv_bn_act``): the
+convolution of the cast input and kernel, BatchNorm computed in float32
+from that output, and the SiLU, which torch rounds once where Flax rounds
+after each of its four operations (tests/test_torch_port_dtype.py derives
+the tolerance this needs).
 """
 from __future__ import annotations
 
@@ -38,15 +46,57 @@ def fold_bn(bn: nn.BatchNorm2d) -> Tuple[torch.Tensor, torch.Tensor]:
     return inv, bn.bias - bn.running_mean * inv
 
 
-class ConvBNAct(nn.Module):
-    """Conv2d (no bias) + folded BatchNorm + SiLU (mmcv ConvModule)."""
+def compute_weight(conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
+    """``conv``'s weight in ``dtype``, channels-last (the layout cuDNN's
+    bf16 convolutions take), cast again only when the weight changed."""
+    w = conv.weight
+    key = (w.data_ptr(), w._version, dtype)
+    cached = conv.__dict__.get('_compute_weight')
+    if cached is None or cached[0] != key:
+        cached = (key, w.detach().to(dtype).contiguous(
+            memory_format=torch.channels_last))
+        conv.__dict__['_compute_weight'] = cached
+    return cached[1]
 
-    def __init__(self, cin: int, cout: int, k: int = 1, stride: int = 1):
+
+def conv_bn_act(conv: nn.Conv2d, bn: nn.BatchNorm2d, x: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    """Conv + BatchNorm + SiLU in a compute dtype other than float32, each
+    rounded to ``dtype``: the convolution's output, BatchNorm ``(y - mean)
+    * rsqrt(var + eps) * scale + bias`` evaluated in float32, and the SiLU
+    (cuDNN runs the convolution channels-last)."""
+    y = F.conv2d(x.to(dtype), compute_weight(conv, dtype), None, conv.stride,
+                 conv.padding)
+    y = F.batch_norm(y, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                     False, 0.0, bn.eps)
+    return F.silu(y)
+
+
+def conv_bias(conv: nn.Conv2d, x: torch.Tensor,
+              dtype: torch.dtype) -> torch.Tensor:
+    """A plain biased conv in ``dtype``: as Flax's ``nn.Conv``, the bias is
+    added to the rounded convolution in ``dtype``."""
+    if dtype == torch.float32:
+        return conv(x)
+    y = F.conv2d(x.to(dtype), compute_weight(conv, dtype), None, conv.stride,
+                 conv.padding)
+    return y + conv.bias.to(dtype)[:, None, None]
+
+
+class ConvBNAct(nn.Module):
+    """Conv2d (no bias) + BatchNorm + SiLU (mmcv ConvModule), computed in
+    ``dtype``."""
+
+    def __init__(self, cin: int, cout: int, k: int = 1, stride: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, k, stride, k // 2, bias=False)
         self.bn = nn.BatchNorm2d(cout, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype != torch.float32:
+            return conv_bn_act(self.conv, self.bn, x, self.dtype)
         scale, bias = fold_bn(self.bn)
         y = self.conv(x) * scale[:, None, None] + bias[:, None, None]
         return F.silu(y)
@@ -70,9 +120,10 @@ def focus_kernel_to_strided(w: torch.Tensor) -> torch.Tensor:
 class Focus(nn.Module):
     """2x2 pixel-unshuffle (tl, bl, tr, br) then a 3x3 ConvBNAct."""
 
-    def __init__(self, cin: int, cout: int, k: int = 3):
+    def __init__(self, cin: int, cout: int, k: int = 3,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv = ConvBNAct(4 * cin, cout, k)
+        self.conv = ConvBNAct(4 * cin, cout, k, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         tl = x[..., ::2, ::2]
@@ -90,10 +141,11 @@ class Focus(nn.Module):
 class DarknetBottleneck(nn.Module):
     """1x1 -> 3x3 with optional residual (expansion 1.0)."""
 
-    def __init__(self, c: int, add_identity: bool = True):
+    def __init__(self, c: int, add_identity: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = ConvBNAct(c, c, 1)
-        self.conv2 = ConvBNAct(c, c, 3)
+        self.conv1 = ConvBNAct(c, c, 1, dtype=dtype)
+        self.conv2 = ConvBNAct(c, c, 3, dtype=dtype)
         self.add_identity = add_identity
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -105,14 +157,16 @@ class CSPLayer(nn.Module):
     """Cross-stage-partial block (expand_ratio 0.5)."""
 
     def __init__(self, cin: int, cout: int, num_blocks: int = 1,
-                 add_identity: bool = True):
+                 add_identity: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         mid = cout // 2
-        self.main_conv = ConvBNAct(cin, mid, 1)
-        self.short_conv = ConvBNAct(cin, mid, 1)
-        self.blocks = nn.Sequential(*[DarknetBottleneck(mid, add_identity)
-                                      for _ in range(num_blocks)])
-        self.final_conv = ConvBNAct(2 * mid, cout, 1)
+        self.main_conv = ConvBNAct(cin, mid, 1, dtype=dtype)
+        self.short_conv = ConvBNAct(cin, mid, 1, dtype=dtype)
+        self.blocks = nn.Sequential(*[
+            DarknetBottleneck(mid, add_identity, dtype=dtype)
+            for _ in range(num_blocks)])
+        self.final_conv = ConvBNAct(2 * mid, cout, 1, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         main = self.blocks(self.main_conv(x))
@@ -124,12 +178,14 @@ class SPPFBottleneck(nn.Module):
     kernel sizes)."""
 
     def __init__(self, cin: int, cout: int,
-                 kernel_sizes: Sequence[int] = (5, 9, 13)):
+                 kernel_sizes: Sequence[int] = (5, 9, 13),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         mid = cin // 2
-        self.conv1 = ConvBNAct(cin, mid, 1)
+        self.conv1 = ConvBNAct(cin, mid, 1, dtype=dtype)
         self.kernel_sizes = tuple(kernel_sizes)
-        self.conv2 = ConvBNAct(mid * (len(self.kernel_sizes) + 1), cout, 1)
+        self.conv2 = ConvBNAct(mid * (len(self.kernel_sizes) + 1), cout, 1,
+                               dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv1(x)

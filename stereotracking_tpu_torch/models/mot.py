@@ -1,8 +1,8 @@
 """Depth-guided OC-SORT: detector -> depth -> tracker, one frame at a time.
 
 Port of ``stereotracking_tpu/models/mot.py`` (``MOTConfig``,
-``FrameResult``, ``predict_frame``, ``predict_frame_raw`` and the
-``OCSORTDisparity`` streaming wrapper).  Steps per frame: preprocess;
+``FrameResult``, ``predict_frame``, ``predict_frame_raw``, ``track_video``
+and the ``OCSORTDisparity`` streaming wrapper).  Steps per frame: preprocess;
 detector (stems, stage 1, stage 2, the rest); decode and NMS; depth of the
 first ``num_dets`` detections; depth^2 box inflation; tracker step; box
 un-inflation; depth re-extracted on the un-inflated boxes (unless
@@ -10,11 +10,12 @@ un-inflation; depth re-extracted on the un-inflated boxes (unless
 
 ``predict_frames_batched`` advances S streams one frame each in one pass
 (every kernel launched once for all S); ``predict_frame`` is its one-stream
-case.
+case.  ``fetch_result`` / ``result_to_host`` take a ``FrameResult`` off the
+card in one synchronisation, as the JAX package's one ``jax.device_get``.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -22,7 +23,7 @@ import torch
 from ..ops.depth import (disp_to_depth, extract_box_depths,
                          extract_box_depths_disp)
 from ..structures.bbox import scale_bbox
-from ..utils.devices import checked_device
+from ..utils.devices import checked_device, to_device
 from . import tracker as trk
 from .csp_darknet import StageBackends
 from .detector import DetectorConfig, YOLOXDetector, detector_predict
@@ -157,19 +158,81 @@ def predict_frame_raw(module: YOLOXDetector, state: trk.TrackState,
     return trk.first_stream(states), trk.first_stream(res)
 
 
+def track_video(module: YOLOXDetector, state: trk.TrackState,
+                frames: dict, frame_ids: Sequence[int], cfg: MOTConfig,
+                scale_factor: Tuple[float, float] = (1.0, 1.0),
+                ) -> Tuple[trk.TrackState, FrameResult]:
+    """Track one stream over a stacked clip: ``frames`` is a dict of
+    (T, 1, H, W, C) tensors from ``preprocess_frame_pure`` (and the raw
+    (T, h, w, 3) 'img_u8' / (T, h, w) 'disp_u16' when the stems run as
+    kernels), ``frame_ids`` T ints.  The state carries from frame to frame
+    as in the JAX ``lax.scan``; returns the final state and the
+    FrameResults stacked on a leading T axis."""
+    results = []
+    for t, fid in enumerate(torch.as_tensor(frame_ids).tolist()):
+        state, res = predict_frame(module, state,
+                                   {k: v[t] for k, v in frames.items()},
+                                   fid, cfg, scale_factor)
+        results.append(res)
+    return state, FrameResult(*(torch.stack(f) for f in zip(*results)))
+
+
+def fetch_result(res: FrameResult) -> Callable[[], FrameResult]:
+    """Start taking ``res`` off its device: on the card every field is
+    copied into pinned host memory with ``non_blocking=True`` on the
+    current stream.  Returns a function that waits for those copies, one
+    synchronisation for all fields (a ``.cpu()`` per field would be one
+    each), and gives the FrameResult of numpy arrays."""
+    if res.det_bboxes.device.type != 'cuda':
+        host = FrameResult(*(np.array(t) for t in res))
+        return lambda: host
+    pinned = []
+    for t in res:
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        pinned.append(h.copy_(t, non_blocking=True))
+    done = torch.cuda.Event()
+    done.record()
+
+    def wait() -> FrameResult:
+        done.synchronize()
+        return FrameResult(*(h.numpy() for h in pinned))
+    return wait
+
+
+def result_to_host(res: FrameResult) -> FrameResult:
+    """``res`` as a FrameResult of numpy arrays, in one synchronisation."""
+    return fetch_result(res)()
+
+
+def detector_module(cfg: MOTConfig, module: Optional[YOLOXDetector],
+                    dtype: Optional[torch.dtype], seed: int
+                    ) -> YOLOXDetector:
+    """``module``, or without one a detector in ``dtype`` (float32 by
+    default) with seeded random weights.  A ``dtype`` that ``module`` was
+    not built with raises: the compute dtype is fixed when the modules are
+    built."""
+    if module is None:
+        module = YOLOXDetector(cfg.detector, dtype=dtype or torch.float32)
+        init_weights(module, torch.Generator().manual_seed(seed))
+    elif dtype is not None and dtype != module.dtype:
+        raise ValueError(f'dtype {dtype} given with a detector built for '
+                         f'{module.dtype}')
+    return module
+
+
 class OCSORTDisparity:
     """Streaming wrapper: holds the detector, its weights and the track
     state, and runs one frame per call, on the card unless ``device`` says
-    otherwise."""
+    otherwise.  ``dtype`` is the detector's compute dtype (float32 unless
+    given; see ``detector_module``)."""
 
     def __init__(self, cfg: MOTConfig = MOTConfig(),
                  module: Optional[YOLOXDetector] = None,
-                 device='cuda', seed: int = 0):
+                 device='cuda', seed: int = 0,
+                 dtype: Optional[torch.dtype] = None):
         self.cfg = cfg
         self.device = checked_device(device)
-        if module is None:
-            module = YOLOXDetector(cfg.detector)
-            init_weights(module, torch.Generator().manual_seed(seed))
+        module = detector_module(cfg, module, dtype, seed)
         self.module = module.to(self.device).eval()
         self.state = trk.init_state(cfg.tracker, self.device)
 
@@ -178,7 +241,7 @@ class OCSORTDisparity:
 
     def _as_tensor(self, x):
         if isinstance(x, np.ndarray):
-            x = torch.from_numpy(np.ascontiguousarray(x))
+            return to_device(x, self.device)   # pinned: no host sync
         return x.to(self.device)
 
     def track(self, inputs: dict, frame_id: int,

@@ -3,7 +3,8 @@
 Port of ``stereotracking_tpu/models/yolox_head.py`` with mmyolo
 ``YOLOXHeadModule`` names (multi_level_cls_convs, multi_level_reg_convs,
 multi_level_conv_cls / _reg / _obj).  The module takes NCHW features and
-returns per-level NHWC maps, the JAX package's layout.
+returns per-level NHWC maps in its compute ``dtype``, the JAX package's
+layout; ``decode_predictions`` casts them to float32 first, as JAX does.
 """
 from __future__ import annotations
 
@@ -12,20 +13,23 @@ from typing import List, Sequence, Tuple
 import torch
 from torch import nn
 
-from .layers import ConvBNAct, widen
+from .layers import ConvBNAct, conv_bias, widen
 
 
 class YOLOXHeadModule(nn.Module):
     def __init__(self, num_classes: int = 1, in_channels: int = 256,
                  feat_channels: int = 256, widen_factor: float = 0.5,
-                 stacked_convs: int = 2, strides: Sequence[int] = (8, 16, 32)):
+                 stacked_convs: int = 2, strides: Sequence[int] = (8, 16, 32),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         cin = widen(in_channels, widen_factor)
         feat = widen(feat_channels, widen_factor)
 
         def stack():
-            return nn.Sequential(*[ConvBNAct(cin if i == 0 else feat, feat, 3)
-                                   for i in range(stacked_convs)])
+            return nn.Sequential(*[
+                ConvBNAct(cin if i == 0 else feat, feat, 3, dtype=dtype)
+                for i in range(stacked_convs)])
 
         n = len(strides)
         self.multi_level_cls_convs = nn.ModuleList(stack() for _ in range(n))
@@ -46,7 +50,7 @@ class YOLOXHeadModule(nn.Module):
                     (cls_scores, self.multi_level_conv_cls[lvl], cls_feat),
                     (bbox_preds, self.multi_level_conv_reg[lvl], reg_feat),
                     (objectnesses, self.multi_level_conv_obj[lvl], reg_feat)):
-                out.append(conv(f).permute(0, 2, 3, 1))
+                out.append(conv_bias(conv, f, self.dtype).permute(0, 2, 3, 1))
         return cls_scores, bbox_preds, objectnesses
 
 

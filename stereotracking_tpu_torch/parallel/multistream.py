@@ -9,9 +9,8 @@ all S * N boxes are one launch, and the tracker's host decisions and
 assignments are one sync for all streams, not one per stream.
 
 Not ported: the device mesh (``mesh`` / ``shard_inputs``, multi-GPU stream
-sharding), the TPU stem-pack layout (``pack_frames`` / ``track_packed*``:
-the port's stem kernel reads raw frames) and the ``dtype`` option (the
-float32 layers stay float32).
+sharding) and the TPU stem-pack layout (``pack_frames`` / ``track_packed*``:
+the port's stem kernel reads raw frames).
 """
 from __future__ import annotations
 
@@ -22,10 +21,10 @@ import torch
 
 from ..models import tracker as trk
 from ..models.detector import YOLOXDetector
-from ..models.mot import (FrameResult, MOTConfig, init_weights,
+from ..models.mot import (FrameResult, MOTConfig, detector_module,
                           predict_frames_batched, preprocess_raw)
 from ..models.preprocessor import padded_shape
-from ..utils.devices import checked_device
+from ..utils.devices import checked_device, to_device
 
 
 def init_stream_states(cfg: MOTConfig, n_streams: int,
@@ -37,17 +36,16 @@ def init_stream_states(cfg: MOTConfig, n_streams: int,
 class MultiStreamTracker:
     """Holds the detector, its weights and the S streams' track states;
     each call advances every stream one frame (or T frames), on the card
-    unless ``device`` says otherwise."""
+    unless ``device`` says otherwise.  ``dtype`` is the detector's compute
+    dtype, as ``OCSORTDisparity``'s."""
 
     def __init__(self, cfg: MOTConfig, n_streams: int,
                  module: Optional[YOLOXDetector] = None, device='cuda',
-                 seed: int = 0):
+                 seed: int = 0, dtype: Optional[torch.dtype] = None):
         self.cfg = cfg
         self.n_streams = n_streams
         self.device = checked_device(device)
-        if module is None:
-            module = YOLOXDetector(cfg.detector)
-            init_weights(module, torch.Generator().manual_seed(seed))
+        module = detector_module(cfg, module, dtype, seed)
         self.module = module.to(self.device).eval()
         self.states = init_stream_states(cfg, n_streams, self.device)
 
@@ -57,7 +55,7 @@ class MultiStreamTracker:
 
     def _as_tensor(self, x) -> torch.Tensor:
         if isinstance(x, np.ndarray):
-            x = torch.from_numpy(np.ascontiguousarray(x))
+            return to_device(x, self.device)   # pinned: no host sync
         return x.to(self.device)
 
     def _frame_ids(self, frame_ids) -> list:
