@@ -11,8 +11,8 @@ Phases, in order; any failure exits non-zero:
 2. build: compiles the CUDA kernels from ``stereotracking_tpu_torch/csrc``
    (one nvcc per source, all at once, sm_90a) and prints the build time;
    compiles the sources of the kernels redesigned for the H100 (the stem,
-   stages 1-3, depth) once more with ``-Xptxas -v`` and prints their
-   registers, shared memory and spills;
+   stages 1-3, depth) and of the JV and NMS kernels once more with
+   ``-Xptxas -v`` and prints their registers, shared memory and spills;
 3. kernels: each kernel against its plain PyTorch version on the same
    inputs, at one stream and at 8 streams of 1080x1920 raw frames padded to
    1088x1920, with the tolerance stated beside each check; kernel, plain
@@ -26,50 +26,68 @@ Phases, in order; any failure exits non-zero:
    composite's and the host wall of one whole extraction beside the eager
    box scalars + epilogue it runs inside; its device time and the kernel
    launches of each (one per extraction) come from ``torch.profiler``
-   after phase 6, since a profiler session slows the host work after it;
+   after the timed phases, since a profiler session slows the host work
+   after it; the JV and NMS kernels exactly against their plain versions
+   on the inputs that the second of two eager main-path steps hands them
+   (the JV also on an all-conflicted problem, the NMS also on candidates
+   of the same shape that suppress, from ``tests/device_step_cases.py``,
+   where every stream must keep some and drop some);
 4. reference: on a small frame the kernel path's head outputs (stage 3
    through its kernel too) must agree with the float32 module path;
 5. slice: ``build_model(flagship config)`` on the card, ``track_raw`` over
-   6 synthetic 1080p frames; launch counts must show stem 2, stage 1 1,
-   stage 2 1 and depth 2 per frame; outputs finite; host syncs per frame;
+   6 synthetic 1080p frames, replayed from the step's CUDA graph (captured
+   by a first call, the state then reset); no wrapper launches a kernel
+   during the replays; outputs finite; no host sync in a frame; the same
+   frames through the eager step (``predict_frames_batched``) equal (ids
+   and validity exact, boxes within 1e-2 px) and timed beside the replays;
    then over 2 frames each the stem and stage-1 kernels with stage 2 on
-   the float32 modules (launches stem 2, stage 1 1, stage 2 0, depth 2 per
-   frame), and a widen-0.25 config with every stage 'auto' (the stem
-   kernel only: stem 2, stages 1-3 0, depth 2; the builder's warning for
-   stage 1 printed);
+   the float32 modules, and a widen-0.25 config with every stage 'auto'
+   (the stem kernel only; the builder's warning for stage 1 printed);
 6. multi-stream: ``MultiStreamTracker`` with the flagship config and
-   ``stage3_backend='cuda'``, 8 steps of 8 streams (each stream its own
-   seed); ms per step and stereo pairs/s; launch counts must show stem 2,
-   stage 1 1, stage 2 1, stage 3 1 and depth 2 per step; outputs finite;
-   host syncs per step no more than the single-stream frame's; stream 0
-   over the first 3 steps equal to a single-stream run of its frames (ids
-   and validity exact, boxes within 1e-2 px);
+   ``stage3_backend='cuda'``, 8 replayed steps of 8 streams (each stream
+   its own seed); ms per step and stereo pairs/s, replayed and eager;
+   outputs finite; no host sync in a step; no wrapper launches a kernel
+   during the replays; replayed equal to eager; stream 0 over the first 3
+   steps equal to a single-stream run of its frames (ids and validity
+   exact, boxes within 1e-2 px);
 7. bf16: phase 6's 8 steps of 8 streams again with the detector's module
    layers computing in bf16 (``MultiStreamTracker(dtype=torch.bfloat16)``,
-   the same weights); ms per step and stereo pairs/s beside phase 6's;
-   launch counts as in phase 6; host syncs per step no more than the
-   single-stream frame's; outputs finite; printed as findings, not
-   checks: the largest bf16 - float32 difference of the head maps on one
-   frame and how many of stream 0's track slots differ over 3 steps;
+   the same weights); replayed and eager ms per step beside phase 6's; no
+   host sync; replayed equal to eager; outputs finite; printed as
+   findings, not checks: the largest bf16 - float32 difference of the head
+   maps on one frame and how many of stream 0's track slots differ over 3
+   steps; then the device time of the tracker's fixed-trip smoothing
+   replay alone (one CUDA graph) at 8 and one stream;
 8. eval: the eval CLI's loop (``stereotracking_tpu_torch.tools.test.
    evaluate``) over 2 videos x 6 frames of 1080x1920 held in memory (ground
    truth: the rectangles ``make_frames`` draws), weights through
    ``init_model`` from a ``.pth`` written to a temporary directory;
    sequentially and with ``--streams 2 --stage-frames``, in float32 and with
-   ``--bf16``: the count metrics of the two loops must be equal; pairs/s
-   and host syncs per step; then ``inference_mot`` over 2 frames must
-   equal ``track_raw`` (ids exact, boxes within 1e-3 px);
-9. probe: the stage-1 kernel's six variants at 8 streams, each held to
+   ``--bf16``: the count metrics of the two loops must be equal; pairs/s;
+   no host sync per step besides the result fetch; then ``inference_mot``
+   over 2 frames must equal ``track_raw`` (ids exact, boxes within 1e-3
+   px);
+9. launches: after the timed phases, each tracker of phases 5-7 is reset
+   and its steps replayed again under ``torch.profiler``, the wrappers'
+   counts set to 0 just before: the hand-written kernels in the trace must
+   be stem 2, stage 1 1, stage 2 1, stage 3 1 (0 in phase 5), depth 2,
+   assignment 3 and nms 1 per step (phase 5's backend mixes: stem 2, stage
+   1 1 or 0, stages 2-3 0, depth 2, assignment 3, nms 1), the wrappers'
+   counts 0 (every step a replay), and ids and validity as in the timed
+   run;
+10. probe: the stage-1 kernel's six variants at 8 streams, each held to
    the plain version and timed (``tools/probe_stage1_variants.py``), the
    production one beside the wmma 16x16 region it replaced.
 
-``--profile`` adds a ``torch.profiler`` window over two multi-stream steps
-and prints the device time by kernel.
+``--profile`` adds, after the timed phases, a ``torch.profiler`` window
+over two replayed steps of one stream in float32 and of 8 streams in
+float32 and in bf16, and prints the device time by kernel, the card's busy
+share and each hand-written kernel's launches in the trace.
 
 Output: the per-phase lines, then the card line and one JSON line of kernel
-results (8-stream shapes; launches from the multi-stream run, the probe's
-from the probe run), then, as the last line, ``{"ok": true, "device":
-{...}}``.
+results (8-stream shapes; launches from the trace of phase 6's replayed
+steps, the probe's from the probe run), then, as the last line, ``{"ok":
+true, "device": {...}}``.
 """
 import json
 import math
@@ -106,6 +124,10 @@ KERNELS = {
                'stereotracking_tpu/ops/stage2_pallas.py:334'),
     'depth': ('stereotracking_tpu_torch/csrc/depth.cu',
               'stereotracking_tpu/ops/depth_pallas.py:84'),
+    'assignment': ('stereotracking_tpu_torch/csrc/assignment.cu',
+                   'stereotracking_tpu/ops/assignment.py:209'),
+    'nms': ('stereotracking_tpu_torch/csrc/nms.cu',
+            'stereotracking_tpu/ops/nms.py:31'),
     'stage1_variants': ('stereotracking_tpu_torch/csrc/stage1.cu',
                         'tools/probe_stage1_variants.py:153'),
 }
@@ -113,6 +135,8 @@ KERNELS = {
 # kernels redesigned for the H100: their achieved rate, share of the bound
 # and ptxas resource usage are printed too
 REDESIGNED = ('stem', 'stage1', 'stage2', 'stage3', 'depth')
+# kernels whose ptxas registers, shared memory and spills are printed
+PTXAS = REDESIGNED + ('assignment', 'nms')
 ALL_KERNELS = ('cuda',) * 4       # a StageBackends with every stage kernel
 
 
@@ -307,9 +331,11 @@ def weight_reads(n, name, regions, before, after):
           f'{n * after / 1e9:.2f} GB (slice ring)', flush=True)
 
 
-def check_kernels(model, frames, device, iters=10):
+def check_kernels(model, frames, next_frames, device, iters=10):
     """Phase 3 at S = len(frames) streams: each kernel against its plain
-    version, all timed; returns {name: result row} and the depth check's
+    version, all timed, the assignment and NMS kernels on the inputs the
+    main path gives them at its second step (``frames``, then
+    ``next_frames``); returns {name: result row} and the depth check's
     torch.profiler function (``check_depth``)."""
     import torch
     import torch.nn.functional as F
@@ -430,6 +456,10 @@ def check_kernels(model, frames, device, iters=10):
 
     res['depth'], trace = check_depth(model.cfg, img, disp_u16, oh, ow,
                                       device, iters)
+    jv_in, nms_in = step_inputs(model, [frames, next_frames], device)
+    res['assignment'] = check_assignment(jv_in, device, iters)
+    res['nms'] = check_nms(nms_in, model.cfg.detector.score_thr, device,
+                           iters)
     return res, trace
 
 
@@ -587,6 +617,215 @@ def check_depth(cfg, img, disp_u16, oh, ow, device, iters):
     return r, trace
 
 
+def step_inputs(model, frames, device):
+    """The inputs that the main path hands the assignment and NMS kernels:
+    two eager steps of ``predict_frames_batched`` over ``frames`` (a list
+    of steps, each a list of S (img, disp)), the stage-3 kernel on, with
+    the wrappers' arguments of the second step recorded: [(ext, need)] for
+    the 3 assignments and (boxes, finite, thr) for the NMS."""
+    import torch
+    from stereotracking_tpu_torch.apis.builder import build_mot_config
+    from stereotracking_tpu_torch.models.mot import (predict_frames_batched,
+                                                     preprocess_raw)
+    from stereotracking_tpu_torch.models.preprocessor import padded_shape
+    from stereotracking_tpu_torch.ops import assignment, nms
+    from stereotracking_tpu_torch.parallel.multistream import \
+        init_stream_states
+    mot = build_mot_config(flagship_cfg('cuda')['model'], device)
+    n = len(frames[0])
+    states = init_stream_states(mot, n, device)
+    seen = dict(jv=[], nms=[])
+    jv, keep = assignment.jv_assign, nms.nms_keep
+
+    def jv_rec(ext, need):
+        seen['jv'].append((ext.clone(), need.clone()))
+        return jv(ext, need)
+
+    def nms_rec(boxes, finite, thr):
+        seen['nms'].append((boxes.clone(), finite.clone(), thr))
+        return keep(boxes, finite, thr)
+
+    assignment.jv_assign, nms.nms_keep = jv_rec, nms_rec
+    try:
+        for t, step in enumerate(frames):
+            seen['jv'].clear()
+            seen['nms'].clear()
+            img, disp = to_card(step, device)
+            inputs = preprocess_raw(img, disp, *padded_shape(*img.shape[1:3]))
+            states, _ = predict_frames_batched(model.module, states, inputs,
+                                               [t] * n, mot)
+    finally:
+        assignment.jv_assign, nms.nms_keep = jv, keep
+    torch.cuda.synchronize()
+    return seen['jv'], seen['nms'][0]
+
+
+def check_assignment(jv_inputs, device, iters):
+    """The JV kernel against its numpy plain version, exactly, on the main
+    path's 3 problems of one step and on an all-conflicted random problem
+    at the same shape (every active row through the JV); the main path's
+    problem with the most rows to assign timed.  Its bound is latency's
+    business: the bytes (each cost once) and one relaxation of C columns
+    per assigned row are microseconds' work, the kernel a chain of
+    dependent Dijkstra steps."""
+    import numpy as np
+    import torch
+    from stereotracking_tpu_torch.ops import assignment_cuda as ac
+    from stereotracking_tpu_torch.ops.assignment import jv_problem
+    n, k, c = jv_inputs[0][0].shape
+    rng = np.random.RandomState(SEED)
+    cost = torch.from_numpy(rng.uniform(0, 0.5, (n, k, c - k)).astype(
+        np.float32)).to(device)
+    ones = torch.ones((n, k), dtype=torch.bool, device=device)
+    ext, need, _, _ = jv_problem(cost, ones, ones[:, :c - k], 0.9)
+    cases = list(jv_inputs) + [(ext, need)]
+    for i, (e, nd) in enumerate(cases):
+        got = ac.jv_assign(e, nd)
+        want = ac.jv_assign_plain(e.cpu(), nd.cpu())
+        require(torch.equal(got.cpu(), want),
+                f'assignment: problem {i} differs from the plain version')
+    rows = [int(nd.sum()) for _, nd in cases]
+    e, nd = max(jv_inputs, key=lambda p: int(p[1].sum()))
+    need_rows = int(nd.sum())
+    r = dict(max_abs_err=0.0,
+             ms=time_ms(lambda: ac.jv_assign(e, nd), 10 * iters),
+             plain_ms=time_ms(lambda: ac.jv_assign_plain(e.cpu(), nd.cpu()),
+                              iters),
+             library_ms=None)
+    r['bound_ms'], r['bound_by'] = bound(
+        nbytes(e, nd) + n * k * 4, need_rows * c * 4, PEAK_F32)
+    r['worst_ms'] = time_ms(lambda: ac.jv_assign(ext, need), iters)
+    print(f'kernel assignment x{n}: rows to assign per call '
+          f'{rows[:-1]} (main path), {rows[-1]} (all conflicted); row2col '
+          f'exact on all 4; kernel {r["ms"]:.4f} ms ({need_rows} rows), '
+          f'all conflicted {r["worst_ms"]:.4f} ms, plain (numpy, with the '
+          f'copies to the host) {r["plain_ms"]:.4f} ms, library none, '
+          f'bound {r["bound_ms"]:.5f} ms ({r["bound_by"]}; latency bounds '
+          f'the kernel: a chain of dependent Dijkstra steps)', flush=True)
+    return r
+
+
+def suppressing_nms_input(n, k, thr, score_thr, device):
+    """(boxes, finite, thr) as the main path's ``batched_nms`` hands them to
+    ``nms_keep`` (score-sorted top k, class-shifted), for
+    ``tests/device_step_cases.nms_case``'s n streams of k + k / 4
+    candidates: two labels, chains of 8 boxes each a few px from the one
+    before (so many pairs overlap past the threshold), tied scores and 5
+    NaN boxes with finite scores."""
+    import torch
+    from stereotracking_tpu_torch.ops import nms
+    sys.path.insert(0, os.path.join(REPO, 'tests'))
+    try:
+        from device_step_cases import nms_case
+    finally:
+        sys.path.pop(0)
+    boxes, scores, labels = (torch.from_numpy(x).to(device) for x in
+                             nms_case(seed=SEED, streams=n, n=k + k // 4))
+    seen, keep = [], nms.nms_keep
+
+    def record(b, f, t):
+        seen.append((b.clone(), f.clone(), t))
+        return keep(b, f, t)
+
+    nms.nms_keep = record
+    try:
+        nms.batched_nms(boxes, scores, labels, thr, score_thr, k)
+    finally:
+        nms.nms_keep = keep
+    return seen[0]
+
+
+def check_nms(nms_inputs, score_thr, device, iters):
+    """The NMS kernel's keep set against the plain fixed point, exactly, on
+    the main path's class-shifted, score-sorted candidates and on
+    candidates at the same shape that suppress (``suppressing_nms_input``:
+    every stream must keep some and drop some of its finite candidates),
+    both timed; bound (main path's input): boxes and flags read once, the
+    keep set written once, and 12 float32 operations per IoU of a pair of
+    finite candidates on the CUDA cores."""
+    import torch
+    from stereotracking_tpu_torch.ops import nms_cuda
+    boxes, finite, thr = nms_inputs
+    n, k = finite.shape
+    sup = suppressing_nms_input(n, k, thr, score_thr, device)
+    require(sup[1].shape == (n, k), f'nms: suppressing input of shape '
+            f'{tuple(sup[1].shape)}, expected {(n, k)}')
+    r = dict(max_abs_err=0.0, library_ms=None)
+    kept, out = {}, {}
+    for what, (b, f, t) in (('main path', nms_inputs), ('suppressing', sup)):
+        out[what] = nms_cuda.nms_keep(b, f, t)
+        want = nms_cuda.nms_keep_plain(b, f, t)
+        require(torch.equal(out[what], want), f'nms ({what}): keep set '
+                f'differs from the plain fixed point')
+        kept[what] = f'{out[what].sum(1).tolist()} of {f.sum(1).tolist()}'
+        pre = '' if what == 'main path' else 'suppress_'
+        r[pre + 'ms'] = time_ms(lambda: nms_cuda.nms_keep(b, f, t), iters)
+        r[pre + 'plain_ms'] = time_ms(
+            lambda: nms_cuda.nms_keep_plain(b, f, t), iters)
+    n_kept, n_fin = out['suppressing'].sum(1), sup[1].sum(1)
+    require(bool(((0 < n_kept) & (n_kept < n_fin)).all()),
+            f'nms (suppressing): kept {kept["suppressing"]} finite '
+            f'candidates per stream; every stream must keep some and drop '
+            f'some')
+    fin = finite.sum(1).double()
+    pairs = float((fin * (fin - 1) / 2).sum())
+    r['bound_ms'], r['bound_by'] = bound(
+        nbytes(boxes, finite, out['main path']), 12 * pairs, PEAK_F32)
+    print(f'kernel nms x{n}: {k} candidates per stream, IoU > {thr}; main '
+          f'path: kept {kept["main path"]}, kernel {r["ms"]:.4f} ms plain '
+          f'{r["plain_ms"]:.4f} ms; suppressing: kept '
+          f'{kept["suppressing"]}, kernel {r["suppress_ms"]:.4f} ms plain '
+          f'{r["suppress_plain_ms"]:.4f} ms; keep sets exact on both; '
+          f'library none (no PyTorch call computes greedy NMS); bound (main '
+          f'path) {r["bound_ms"]:.5f} ms ({r["bound_by"]}: '
+          f'{pairs / 1e6:.2f} M IoUs)', flush=True)
+    return r
+
+
+def replay_cost(tcfg, device, n_streams, iters=20):
+    """Device time of the tracker's fixed-trip smoothing replay alone
+    (``replay_bound`` Kalman updates over (S, 64) slots, as the step runs
+    it), captured in a CUDA graph and timed by CUDA events."""
+    import torch
+    from stereotracking_tpu_torch.models import kalman
+    from stereotracking_tpu_torch.models import tracker as trk
+    from stereotracking_tpu_torch.structures.bbox import bbox_xyxy_to_cxcyah
+    g = torch.Generator().manual_seed(SEED)
+    k = tcfg.num_slots
+    box = torch.rand((n_streams, k, 4), generator=g) * 100
+    box[..., 2:] += box[..., :2] + 10
+    box = box.to(device)
+    mean, cov = kalman.initiate(bbox_xyxy_to_cxcyah(box))
+    shift = torch.ones_like(box)
+    unmatch = torch.randint(0, tcfg.num_frames_retain, (n_streams, k),
+                            generator=g).to(device)
+    recovered = unmatch > 20
+
+    def replay():
+        m, c = mean, cov
+        for i in range(trk.replay_bound(tcfg)):
+            virtual = box + float(i + 1) * shift
+            m2, c2 = kalman.update(m, c, bbox_xyxy_to_cxcyah(virtual))
+            apply = recovered & (i < unmatch)
+            m = torch.where(apply[..., None], m2, m)
+            c = torch.where(apply[..., None, None], c2, c)
+        return m, c
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        replay()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replay()
+    ms = time_ms(graph.replay, iters)
+    print(f'tracker x{n_streams}: the smoothing replay\'s '
+          f'{trk.replay_bound(tcfg)} Kalman updates over ({n_streams}, {k}) '
+          f'slots, one CUDA graph: {ms:.4f} ms device time', flush=True)
+    return ms
+
+
 def check_small_reference(model, device):
     """The kernel path's head outputs, stage 3 through its kernel too,
     against the float32 module path on a small frame.  The kernels round to
@@ -639,23 +878,152 @@ def check_result(r, lead, num_dets, what):
     require(r.track_ids.shape == lead + (num_dets,), f'{what}: track slots')
 
 
+# launches per step of every hand-written kernel of the main path
+PER_STEP = {'stem': 2, 'stage1': 1, 'stage2': 1, 'stage3': 1, 'depth': 2,
+            'assignment': 3, 'nms': 1}
+
+
+# the kernel that each wrapper launches, as a torch.profiler trace names it
+# (stage 3's wrapper launches an entry and a chain kernel, one count)
+TRACE_KERNELS = {'stem': 'focus_stem_kernel', 'stage1': 'stage1_mma_kernel',
+                 'stage2': 'stage_csp_kernel', 'stage3': 'stage3_chain_kernel',
+                 'depth': 'box_depths_kernel', 'assignment': 'jv_kernel',
+                 'nms': 'nms_kernel'}
+
+
+def require_launches(counts, want, steps, what):
+    for name, per in want.items():
+        require(counts[name] == per * steps,
+                f'{what} {name}: {counts[name]} launches over {steps} steps, '
+                f'expected {per} per step')
+
+
+def require_replayed(what):
+    """No wrapper launched a kernel since the counts were set to 0: every
+    step replayed its graph, none ran eagerly."""
+    from stereotracking_tpu_torch import _kernels
+    counts = _kernels.launch_counts()
+    require(not any(counts.values()), f'{what}: wrappers launched {counts} '
+            f'during replayed steps')
+
+
+def trace_job(tracker, frames, ids, want, results, what):
+    """The arguments of a ``trace_launches`` run after the timed phases."""
+    return dict(tracker=tracker, frames=frames, ids=ids, want=want,
+                results=results, what=what)
+
+
+def trace_launches(tracker, frames, ids, want, results, what):
+    """The main path's launches: ``tracker`` reset and its steps replayed
+    over ``frames`` with frame ids ``ids`` under ``torch.profiler``, the
+    wrappers' counts set to 0 just before and read just after.  The
+    hand-written kernels in the trace must be ``want`` per step (stage 3's
+    entry kernel as often as its chain kernel); the wrappers' counts must
+    stay 0 (each step a replay); ids and validity must equal ``results``,
+    the timed run's.  Returns the launches in the trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from stereotracking_tpu_torch import _kernels
+    tracker.reset()
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = [tracker.track_raw(*f, i) for f, i in zip(frames, ids)]
+        torch.cuda.synchronize()
+    require_replayed(f'{what} (traced)')
+    keys = [(e.key, e.count) for e in prof.key_averages()]
+    seen = {name: sum(c for k, c in keys if sym in k)
+            for name, sym in TRACE_KERNELS.items()}
+    entry = sum(c for k, c in keys if 'stage3_entry_kernel' in k)
+    require(entry == seen['stage3'], f'{what}: {entry} stage-3 entry '
+            f'kernels beside {seen["stage3"]} chain kernels in the trace')
+    require_launches(seen, want, len(frames), f'{what} (trace)')
+    for t, (a, b) in enumerate(zip(got, results)):
+        for name in ('track_ids', 'track_valid', 'det_valid'):
+            require(torch.equal(getattr(a, name), getattr(b, name)),
+                    f'{what} (traced) step {t}: {name} differs from the '
+                    f'timed run')
+    print(f'launches {what}: {len(frames)} replayed steps in a '
+          f'torch.profiler trace: {seen} (wrappers: 0; ids equal to the '
+          f'timed run)', flush=True)
+    return seen
+
+
+def prime(tracker, img, disp, n_streams):
+    """Capture the tracker's step graph on its first call (warm-up step,
+    capture, one replay), then reset its states; returns the ms it took."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tracker.track_raw(img, disp, [0] * n_streams if n_streams else 0)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    tracker.reset()
+    return ms
+
+
+def eager_steps(module, cfg, steps, device):
+    """The same steps eagerly (``predict_frames_batched`` from fresh
+    states, frame ids t), each synchronised: (results, ms per step)."""
+    import torch
+    from stereotracking_tpu_torch.models.mot import (predict_frames_batched,
+                                                     preprocess_raw)
+    from stereotracking_tpu_torch.models.preprocessor import padded_shape
+    from stereotracking_tpu_torch.parallel.multistream import \
+        init_stream_states
+    states = init_stream_states(cfg, steps[0][0].shape[0], device)
+    results, per_step = [], []
+    for t, (img, disp) in enumerate(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inputs = preprocess_raw(img, disp, *padded_shape(*img.shape[1:3]))
+        states, r = predict_frames_batched(module, states, inputs,
+                                           [t] * img.shape[0], cfg)
+        torch.cuda.synchronize()
+        per_step.append((time.perf_counter() - t0) * 1e3)
+        results.append(r)
+    return results, per_step
+
+
+def same_results(got, want, what):
+    """Replayed against eager: ids and validity exact, tracked boxes within
+    1e-2 px; returns the largest box difference."""
+    import torch
+    worst = 0.0
+    for t, (a, b) in enumerate(zip(got, want)):
+        for name in ('track_ids', 'track_valid', 'det_valid'):
+            require(torch.equal(getattr(a, name), getattr(b, name)),
+                    f'{what} step {t}: {name} differs from the eager step')
+        err = float((a.track_bboxes - b.track_bboxes).abs().max())
+        require(err <= 1e-2, f'{what} step {t}: track_bboxes off the eager '
+                f'step by {err} px')
+        worst = max(worst, err)
+    return worst
+
+
+def median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
 def run_slice(model, frames, device):
-    """Phase 5: the single-stream flagship slice, counters checked."""
+    """Phase 5: the single-stream flagship slice, graph-replayed, counters
+    checked, against the eager step."""
     import torch
     from stereotracking_tpu_torch import _kernels
     dev_frames = [to_card([f], device) for f in frames]
-    dev_frames = [(i[0], d[0]) for i, d in dev_frames]
-    model.reset()
+    capture_ms = prime(model, dev_frames[0][0][0], dev_frames[0][1][0], 0)
     torch.cuda.synchronize()
     _kernels.reset_launch_counts()
     per_frame, results = [], []
     for f, (img, disp) in enumerate(dev_frames):
         t0 = time.perf_counter()
-        r = model.track_raw(img, disp, f)
+        r = model.track_raw(img[0], disp[0], f)
         torch.cuda.synchronize()
         per_frame.append((time.perf_counter() - t0) * 1e3)
         results.append(r)
-    counts = _kernels.launch_counts()
+    require_replayed('slice')
     n_ids = set()
     for f, (r, ms) in enumerate(zip(results, per_frame)):
         check_result(r, (), model.cfg.tracker.num_dets, f'frame {f}')
@@ -664,21 +1032,28 @@ def run_slice(model, frames, device):
         print(f'frame {f}: {int(r.det_valid.sum())} valid detections, '
               f'{int(r.track_valid.sum())} valid tracks, {ms:.2f} ms',
               flush=True)
-    want = {'stem': 2, 'stage1': 1, 'stage2': 1, 'stage3': 0, 'depth': 2}
-    for name, per in want.items():
-        require(counts[name] == per * len(frames),
-                f'{name}: {counts[name]} launches over {len(frames)} frames,'
-                f' expected {per} per frame')
     require(len(n_ids) > 0, 'no track id assigned')
-    syncs = count_syncs(lambda: model.track_raw(*dev_frames[0], len(frames)))
-    print(f'host syncs in one frame (torch sync debug mode): {syncs}',
-          flush=True)
-    steady = sorted(per_frame[2:])        # after cuDNN's first-call setup
+    syncs = count_syncs(lambda: model.track_raw(*(x[0] for x in
+                                                  dev_frames[0]),
+                                                len(frames)))
+    require(syncs == 0, f'slice: {syncs} host syncs in a replayed frame')
+    eager, eager_ms = eager_steps(model.module, model.cfg, dev_frames,
+                                  device)
+    err = same_results([r._replace(**{k: v[None] for k, v in
+                                      r._asdict().items()})
+                        for r in results], eager, 'slice')
+    out = dict(ms=median(per_frame[2:]), eager_ms=median(eager_ms[2:]),
+               capture_ms=capture_ms)
     print(f'slice: {len(frames)} frames of {FRAME_H}x{FRAME_W}, '
-          f'{len(n_ids)} track ids, launches {counts}, ms/frame first two '
+          f'{len(n_ids)} track ids; graph capture (warm-up step included) '
+          f'{capture_ms:.2f} ms; replayed ms/frame first two '
           f'{per_frame[0]:.2f} {per_frame[1]:.2f}, frames 2-{len(frames) - 1}'
-          f' median {steady[len(steady) // 2]:.2f}', flush=True)
-    return counts, syncs
+          f' median {out["ms"]:.2f}; eager median {out["eager_ms"]:.2f} '
+          f'(this run); host syncs per frame {syncs}; replayed == eager (ids '
+          f'exact, boxes within {err:.3g} px)', flush=True)
+    return out, trace_job(model, [(img[0], disp[0]) for img, disp in
+                                  dev_frames], list(range(len(frames))),
+                          dict(PER_STEP, stage3=0), results, 'slice')
 
 
 def run_mixed(model, frames, device):
@@ -694,6 +1069,7 @@ def run_mixed(model, frames, device):
     from stereotracking_tpu_torch.models.csp_darknet import StageBackends
     from stereotracking_tpu_torch.models.mot import OCSORTDisparity
     dev_frames = [to_card([f], device) for f in frames]
+    jobs = []
     mixed = flagship_cfg()['model']
     mixed.update(stem_backend='cuda', stage1_backend='cuda',
                  stage2_backend='torch')
@@ -714,31 +1090,54 @@ def run_mixed(model, frames, device):
         require(sorted(m.split('_backend')[0] for m in said) == list(moved),
                 f'{what}: the builder reported {said}')
         one = OCSORTDisparity(mot, module=module, device=device, seed=SEED)
+        prime(one, dev_frames[0][0][0], dev_frames[0][1][0], 0)
         torch.cuda.synchronize()
         _kernels.reset_launch_counts()
+        results = []
         for f, (img, disp) in enumerate(dev_frames):
             r = one.track_raw(img[0], disp[0], f)
             check_result(r, (), mot.tracker.num_dets, f'{what}, frame {f}')
+            results.append(r)
         torch.cuda.synchronize()
-        counts = _kernels.launch_counts()
+        require_replayed(f'mixed ({what})')
         want = {name: per if b == 'cuda' else 0 for name, per, b in zip(
             StageBackends._fields, (2, 1, 1, 1), backends)}
-        want['depth'] = 2
-        for name, per in want.items():
-            require(counts[name] == per * len(frames),
-                    f'{what}: {counts[name]} {name} launches over '
-                    f'{len(frames)} frames, expected {per} per frame')
+        want.update(depth=2, assignment=3, nms=1)
+        jobs.append(trace_job(
+            one, [(img[0], disp[0]) for img, disp in dev_frames],
+            list(range(len(frames))), want, results, f'mixed ({what})'))
         for m in said:
             print(f'mixed backends ({what}): builder: {m}', flush=True)
-        print(f'mixed backends ({what}): {len(frames)} frames, launches '
-              f'{counts}', flush=True)
+        print(f'mixed backends ({what}): {len(frames)} frames replayed',
+              flush=True)
+    return jobs
 
 
-def run_multistream(model, device, single_syncs, profile=False):
-    """Phase 6: MultiStreamTracker, 8 streams x 8 steps, stage-3 kernel on."""
-    import numpy as np
+def run_steps(ms, steps, what):
+    """The timed steps of a primed MultiStreamTracker, each a replay:
+    (results, ms per step)."""
     import torch
     from stereotracking_tpu_torch import _kernels
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    per_step, results = [], []
+    for t, (imgs, disps) in enumerate(steps):
+        t0 = time.perf_counter()
+        r = ms.track_raw(imgs, disps, [t] * N_STREAMS)
+        torch.cuda.synchronize()
+        per_step.append((time.perf_counter() - t0) * 1e3)
+        results.append(r)
+    require_replayed(what)
+    for t, r in enumerate(results):
+        check_result(r, (N_STREAMS,), ms.cfg.tracker.num_dets,
+                     f'{what} step {t}')
+    return results, per_step
+
+
+def run_multistream(model, device):
+    """Phase 6: MultiStreamTracker, 8 streams x 8 steps, stage-3 kernel on,
+    graph-replayed; against the eager step and single-stream runs."""
+    import torch
     from stereotracking_tpu_torch.apis.builder import build_mot_config
     from stereotracking_tpu_torch.models.mot import OCSORTDisparity
     from stereotracking_tpu_torch.parallel.multistream import \
@@ -753,41 +1152,29 @@ def run_multistream(model, device, single_syncs, profile=False):
                for s in range(N_STREAMS)]
     steps = [to_card([streams[s][t] for s in range(N_STREAMS)], device)
              for t in range(N_STEPS)]
-    torch.cuda.synchronize()
-    _kernels.reset_launch_counts()
-    per_step, results = [], []
-    for t, (imgs, disps) in enumerate(steps):
-        t0 = time.perf_counter()
-        r = ms.track_raw(imgs, disps, [t] * N_STREAMS)
-        torch.cuda.synchronize()
-        per_step.append((time.perf_counter() - t0) * 1e3)
-        results.append(r)
-    counts = _kernels.launch_counts()
-    want = {'stem': 2, 'stage1': 1, 'stage2': 1, 'stage3': 1, 'depth': 2}
-    for name, per in want.items():
-        require(counts[name] == per * N_STEPS,
-                f'multi-stream {name}: {counts[name]} launches over '
-                f'{N_STEPS} steps, expected {per} per step')
+    capture_ms = prime(ms, *steps[0], N_STREAMS)
+    results, per_step = run_steps(ms, steps, 'multi-stream')
     n_ids = set()
     for t, r in enumerate(results):
-        check_result(r, (N_STREAMS,), mot.tracker.num_dets, f'step {t}')
         n_ids.update(r.track_ids[r.track_valid].tolist())
         print(f'step {t}: {int(r.det_valid.sum())} valid detections, '
               f'{int(r.track_valid.sum())} valid tracks over {N_STREAMS} '
               f'streams, {per_step[t]:.2f} ms', flush=True)
     require(len(n_ids - {-1}) > 0, 'multi-stream: no track id assigned')
     syncs = count_syncs(lambda: ms.track_raw(*steps[0], [N_STEPS] * N_STREAMS))
-    steady = sorted(per_step[2:])
-    med = steady[len(steady) // 2]
+    require(syncs == 0, f'multi-stream: {syncs} host syncs in a replayed '
+            f'step')
+    eager, eager_ms = eager_steps(model.module, mot, steps, device)
+    err = same_results(results, eager, 'multi-stream')
+    med, emed = median(per_step[2:]), median(eager_ms[2:])
     print(f'multi-stream: {N_STREAMS} streams x {N_STEPS} steps of '
-          f'{FRAME_H}x{FRAME_W}, launches {counts}, ms/step first two '
-          f'{per_step[0]:.2f} {per_step[1]:.2f}, steps 2-{N_STEPS - 1} '
-          f'median {med:.2f} ({N_STREAMS / med * 1e3:.1f} stereo pairs/s), '
-          f'host syncs per step {syncs} (single stream {single_syncs})',
-          flush=True)
-    require(syncs <= single_syncs,
-            f'multi-stream: {syncs} host syncs per step > {single_syncs} of '
-            f'the single-stream frame')
+          f'{FRAME_H}x{FRAME_W}; graph capture (warm-up '
+          f'step included) {capture_ms:.2f} ms; replayed ms/step first two '
+          f'{per_step[0]:.2f} {per_step[1]:.2f}, steps 2-{N_STEPS - 1} median '
+          f'{med:.2f} ({N_STREAMS / med * 1e3:.1f} stereo pairs/s); eager '
+          f'median {emed:.2f} ({N_STREAMS / emed * 1e3:.1f} pairs/s, this '
+          f'run); host syncs per step {syncs}; replayed == eager (ids exact, '
+          f'boxes within {err:.3g} px)', flush=True)
 
     one = OCSORTDisparity(mot, module=model.module, device=device)
     for t in range(N_PARITY):
@@ -806,89 +1193,85 @@ def run_multistream(model, device, single_syncs, profile=False):
     print(f'multi-stream: stream 0 equals its single-stream run over '
           f'{N_PARITY} steps (ids and validity exact, boxes within 1e-2 px)',
           flush=True)
-    if profile:
-        profile_steps(ms, steps)
-    return counts, dict(ms_per_step=med, pairs_per_s=N_STREAMS / med * 1e3,
-                        syncs_per_step=syncs, results=results[:N_PARITY],
-                        steps=steps)
+    del one
+    return dict(ms_per_step=med, pairs_per_s=N_STREAMS / med * 1e3,
+                eager_ms_per_step=emed, capture_ms=capture_ms,
+                syncs_per_step=syncs, results=results[:N_PARITY],
+                steps=steps, mot=mot, tracker=ms,
+                job=trace_job(ms, steps, [[t] * N_STREAMS
+                                          for t in range(N_STEPS)],
+                              PER_STEP, results, 'multi-stream'))
 
 
-def profile_steps(ms, steps):
-    """Device time by kernel over two multi-stream steps."""
+def profile_steps(step, what):
+    """Device time by kernel over two replayed steps (``step(t)`` runs step
+    t), the kernel sum against the steps' wall time (the card's busy
+    share), and each hand-written kernel's launches in the trace."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         for t in range(2):
-            ms.track_raw(*steps[t], [N_STEPS + 1 + t] * N_STREAMS)
+            step(t)
         torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e6
     rows = [(getattr(e, 'device_time_total', 0) or
              getattr(e, 'cuda_time_total', 0), e.count, e.key)
             for e in prof.key_averages()]
     rows = sorted((r for r in rows if r[0] > 0), reverse=True)
     total = sum(r[0] for r in rows if not r[2].startswith('aten::'))
-    print(f'profile: device time over 2 steps by kernel (us); kernel sum '
-          f'{total:.0f} us', flush=True)
+    print(f'profile {what}: device time over 2 replayed steps by kernel (us);'
+          f' kernel sum {total:.0f} us of {wall:.0f} us wall: the card busy '
+          f'{100 * total / wall:.1f}%', flush=True)
     for us, cnt, key in rows[:40]:
-        print(f'profile: {us:12.1f} us {cnt:6d}x {key[:90]}', flush=True)
+        print(f'profile {what}: {us:12.1f} us {cnt:6d}x {key[:90]}',
+              flush=True)
+    names = tuple(TRACE_KERNELS.values()) + ('stage3_entry_kernel',)
+    seen = {n: sum(c for _, c, k in rows if n in k) for n in names}
+    print(f'profile {what}: hand-written kernel launches in the trace of 2 '
+          f'steps: {seen}', flush=True)
 
 
-def run_bf16(model, device, single_syncs, f32):
-    """Phase 8: the multi-stream phase's 8 steps of 8 streams again with
+def run_bf16(model, device, f32):
+    """Phase 7: the multi-stream phase's 8 steps of 8 streams again with
     the detector's module layers in bf16 (``dtype=torch.bfloat16``, the
-    same weights), beside phase 6's float32 numbers.  Launches as in
-    float32; host syncs per step no more than the single-stream frame's;
-    outputs finite.  Findings, not checks: the largest bf16 - float32
-    difference of the head maps on one frame, and how many of stream 0's
-    track ids differ from the float32 run over its first steps."""
+    same weights), graph-replayed, beside phase 6's float32 numbers and the
+    eager bf16 step.  Launches as in float32; no host sync; outputs
+    finite.  Findings, not checks: the largest bf16 - float32 difference
+    of the head maps on one frame, and how many of stream 0's track ids
+    differ from the float32 run over its first steps."""
     import torch
-    from stereotracking_tpu_torch import _kernels
-    from stereotracking_tpu_torch.apis.builder import build_mot_config
-    from stereotracking_tpu_torch.models.csp_darknet import StageBackends
     from stereotracking_tpu_torch.models.detector import YOLOXDetector
     from stereotracking_tpu_torch.models.mot import preprocess_raw
     from stereotracking_tpu_torch.models.preprocessor import padded_shape
     from stereotracking_tpu_torch.parallel.multistream import \
         MultiStreamTracker
     bf16 = torch.bfloat16
-    mot = build_mot_config(flagship_cfg('cuda')['model'], device)
-    require(mot.backends == StageBackends(*ALL_KERNELS),
-            f'bf16 config: {mot.backends}')
+    mot = f32['mot']
     det = YOLOXDetector(mot.detector, dtype=bf16)
     det.load_state_dict(model.module.state_dict())
     ms = MultiStreamTracker(mot, N_STREAMS, module=det, device=device,
                             dtype=bf16)
     steps = f32['steps']
-    torch.cuda.synchronize()
-    _kernels.reset_launch_counts()
-    per_step, results = [], []
-    for t, (imgs, disps) in enumerate(steps):
-        t0 = time.perf_counter()
-        r = ms.track_raw(imgs, disps, [t] * N_STREAMS)
-        torch.cuda.synchronize()
-        per_step.append((time.perf_counter() - t0) * 1e3)
-        results.append(r)
-    counts = _kernels.launch_counts()
-    want = {'stem': 2, 'stage1': 1, 'stage2': 1, 'stage3': 1, 'depth': 2}
-    for name, per in want.items():
-        require(counts[name] == per * N_STEPS,
-                f'bf16 {name}: {counts[name]} launches over {N_STEPS} '
-                f'steps, expected {per} per step')
-    for t, r in enumerate(results):
-        check_result(r, (N_STREAMS,), mot.tracker.num_dets, f'bf16 step {t}')
+    capture_ms = prime(ms, *steps[0], N_STREAMS)
+    results, per_step = run_steps(ms, steps, 'bf16')
     syncs = count_syncs(lambda: ms.track_raw(*steps[0], [N_STEPS] * N_STREAMS))
-    require(syncs <= single_syncs,
-            f'bf16: {syncs} host syncs per step > {single_syncs} of the '
-            f'single-stream frame')
-    steady = sorted(per_step[2:])
-    med = steady[len(steady) // 2]
+    require(syncs == 0, f'bf16: {syncs} host syncs in a replayed step')
+    eager, eager_ms = eager_steps(ms.module, mot, steps, device)
+    err = same_results(results, eager, 'bf16')
+    med, emed = median(per_step[2:]), median(eager_ms[2:])
     print(f'bf16: {N_STREAMS} streams x {N_STEPS} steps of {FRAME_H}x'
-          f'{FRAME_W}, launches {counts}, ms/step first two '
-          f'{per_step[0]:.2f} {per_step[1]:.2f}, steps 2-{N_STEPS - 1} median '
-          f'{med:.2f} ({N_STREAMS / med * 1e3:.1f} stereo pairs/s); float32 '
-          f'(phase 6, this run) {f32["ms_per_step"]:.2f} ms/step '
-          f'({f32["pairs_per_s"]:.1f} stereo pairs/s); host syncs per step '
-          f'{syncs} (single stream {single_syncs})', flush=True)
+          f'{FRAME_W}; graph capture {capture_ms:.2f} ms; '
+          f'replayed ms/step first two {per_step[0]:.2f} {per_step[1]:.2f}, '
+          f'steps 2-{N_STEPS - 1} median {med:.2f} ({N_STREAMS / med * 1e3:.1f}'
+          f' stereo pairs/s); eager median {emed:.2f} '
+          f'({N_STREAMS / emed * 1e3:.1f} pairs/s); float32 replayed (phase '
+          f'6, this run) {f32["ms_per_step"]:.2f} ms/step, eager '
+          f'{f32["eager_ms_per_step"]:.2f}; host syncs per step {syncs}; '
+          f'replayed == eager (ids exact, boxes within {err:.3g} px)',
+          flush=True)
 
     img, disp = steps[0][0][:1], steps[0][1][:1]
     inputs = preprocess_raw(img, disp, *padded_shape(*img.shape[1:3]))
@@ -896,10 +1279,10 @@ def run_bf16(model, device, single_syncs, f32):
         hb = det(inputs, mot.backends)
         hf = model.module(inputs, mot.backends)
     for name, b, f in zip(('cls', 'reg', 'obj'), hb, hf):
-        err = max(float((x.float() - y).abs().max()) for x, y in zip(b, f))
+        e = max(float((x.float() - y).abs().max()) for x, y in zip(b, f))
         top = max(float(y.abs().max()) for y in f)
         print(f'bf16 finding: head {name} maps, one {FRAME_H}x{FRAME_W} '
-              f'frame: largest |bf16 - float32| {err:.4g} (largest '
+              f'frame: largest |bf16 - float32| {e:.4g} (largest '
               f'|float32| {top:.4g})', flush=True)
     differ = total = 0
     for rb, rf in zip(results, f32['results']):
@@ -912,7 +1295,10 @@ def run_bf16(model, device, single_syncs, f32):
           f'{differ} of {total} track slots differ in id or validity from '
           f'the float32 run', flush=True)
     return dict(ms_per_step=med, pairs_per_s=N_STREAMS / med * 1e3,
-                syncs_per_step=syncs)
+                eager_ms_per_step=emed, syncs_per_step=syncs, tracker=ms,
+                job=trace_job(ms, steps, [[t] * N_STREAMS
+                                          for t in range(N_STEPS)],
+                              PER_STEP, results, 'bf16'))
 
 
 class MemoryDataset:
@@ -1030,6 +1416,8 @@ def run_eval(model, device):
                     n, elapsed, metrics = run()
                     n_steps = 12 if mode == 'sequential' else 6 + 1  # warm-up
                     syncs = count_syncs(run) / n_steps
+                    require(syncs == 0, f'eval {dtype} {mode}: {syncs} host '
+                            f'syncs per step besides the result fetch')
                     require(n == 12, f'eval {dtype} {mode}: {n} frames scored')
                     got[mode] = metrics
                     what = f'{dtype} {mode}' + ('' if cudnn else ', cuDNN off')
@@ -1119,24 +1507,45 @@ def main():
     print(f'build: {path.name} in {time.perf_counter() - t0:.1f} s '
           f'(nvcc {_kernels.build_seconds})', flush=True)
     for name, lines in _kernels.ptxas_usage(
-            sorted({KERNELS[k][0] for k in REDESIGNED})).items():
+            sorted({KERNELS[k][0] for k in PTXAS})).items():
         for line in lines:
             print(f'ptxas {name}: {line}', flush=True)
 
     model = build_flagship(device)
-    streams = [make_frames(1, FRAME_H, FRAME_W, 100 + s)[0]
-               for s in range(N_STREAMS)]
-    _, trace_one = check_kernels(model, streams[:1], device)
-    res, trace = check_kernels(model, streams, device)
+    two = [make_frames(2, FRAME_H, FRAME_W, 100 + s) for s in range(N_STREAMS)]
+    streams, nexts = [f[0] for f in two], [f[1] for f in two]
+    _, trace_one = check_kernels(model, streams[:1], nexts[:1], device)
+    res, trace = check_kernels(model, streams, nexts, device)
+    del two, nexts
     check_small_reference(model, device)
     slice_frames = make_frames(N_FRAMES, FRAME_H, FRAME_W, SEED)
-    _, single_syncs = run_slice(model, slice_frames, device)
-    run_mixed(model, slice_frames[:2], device)
-    counts, f32 = run_multistream(model, device, single_syncs,
-                                  profile='--profile' in sys.argv[1:])
-    run_bf16(model, device, single_syncs, f32)
-    del f32
+    _, slice_job = run_slice(model, slice_frames, device)
+    mixed_jobs = run_mixed(model, slice_frames[:2], device)
+    f32 = run_multistream(model, device)
+    bf16 = run_bf16(model, device, f32)
+    replay_cost(f32['mot'].tracker, device, N_STREAMS)
+    replay_cost(f32['mot'].tracker, device, 1)
     run_eval(model, device)
+    # the main paths' launches, from torch.profiler traces of their replayed
+    # steps, after the timed phases: a profiler session slows the host work
+    # of the process after it
+    for job in [slice_job] + mixed_jobs + [bf16['job']]:
+        trace_launches(**job)
+    counts = trace_launches(**f32['job'])
+    del slice_job, mixed_jobs
+    if '--profile' in sys.argv[1:]:
+        # after the timed phases: a profiler session slows the host work of
+        # the process after it
+        one = [to_card([f], device) for f in slice_frames[:2]]
+        profile_steps(lambda t: model.track_raw(one[t][0][0], one[t][1][0],
+                                                N_FRAMES + 1 + t),
+                      'one stream float32')
+        for what, run in (('float32', f32), ('bf16', bf16)):
+            profile_steps(lambda t: run['tracker'].track_raw(
+                *f32['steps'][t], [N_STEPS + 1 + t] * N_STREAMS),
+                f'8 streams {what}')
+        del one
+    del f32, bf16
     # the depth kernel's torch.profiler figures, after the timed phases: a
     # profiler session slows the host work of the process after it
     trace_one()

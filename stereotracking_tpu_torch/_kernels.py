@@ -10,7 +10,9 @@ when this module is imported.
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``check`` raises on a non-zero status.  Each Python
 wrapper adds one to its kernel's launch count right after a launch, and
-nowhere else, so a run can show which kernels its main path went through.
+nowhere else, so a run can show which kernels its main path went through
+(a CUDA graph's replay calls no wrapper: a ``torch.profiler`` trace counts
+the kernels it runs).
 """
 from __future__ import annotations
 
@@ -27,8 +29,8 @@ CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parent / '_build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-O3',
               '-std=c++17', '-Xcompiler', '-fPIC')
-KERNELS = ('stem', 'stage1', 'stage2', 'stage3', 'depth',
-           'stage1_variants')
+KERNELS = ('stem', 'stage1', 'stage2', 'stage3', 'depth', 'assignment',
+           'nms', 'stage1_variants')
 
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 _lib = None
@@ -55,6 +57,10 @@ _SIGNATURES = {
     # stream
     'st_box_depths': (_P, _I, _I, _I, _P, _I, _P, _I, _I, _I, _F, _I, _P,
                       _P, _P, _P),
+    # cost, need, n, k, c, row2col, stream
+    'st_jv_assign': (_P, _P, _I, _I, _I, _P, _P),
+    # boxes, finite, n, k, thr, eps, mask scratch, tickets, keep, stream
+    'st_nms_keep': (_P, _P, _I, _I, _F, _F, _P, _P, _P, _P),
 }
 
 

@@ -60,11 +60,12 @@ class YOLOXDetector(nn.Module):
 
 @torch.no_grad()
 def detector_predict(module: YOLOXDetector, inputs: dict,
-                     scale_factor: Tuple[float, float] = (1.0, 1.0),
+                     scale_factor=(1.0, 1.0),
                      backends: StageBackends = StageBackends()
                      ) -> NMSResult:
     """Predict for the S frames of ``inputs``: forward + decode + NMS +
-    rescale (boxes are divided by ``scale_factor`` = (sf_x, sf_y)), each
+    rescale (boxes are divided by ``scale_factor``: (sf_x, sf_y), or a (4,)
+    float32 tensor (sf_x, sf_y, sf_x, sf_y) on the boxes' device), each
     NMSResult field with a leading S."""
     cfg = module.cfg
     cls, reg, obj = module(inputs, backends)
@@ -72,9 +73,14 @@ def detector_predict(module: YOLOXDetector, inputs: dict,
     fb, fs, fl = multiclass_candidates(boxes, scores, cfg.score_thr)
     res = batched_nms(fb, fs, fl, cfg.nms_iou_thr, cfg.score_thr,
                       cfg.pre_nms_top_k, cfg.max_per_img)
-    if tuple(scale_factor) == (1.0, 1.0):
-        return res                   # x / 1 == x: skip the host-to-device copy
-    sf = torch.tensor([scale_factor[0], scale_factor[1], scale_factor[0],
-                       scale_factor[1]], dtype=torch.float32,
-                      device=res.boxes.device)
-    return res._replace(boxes=res.boxes / sf)
+    if not torch.is_tensor(scale_factor):
+        if tuple(scale_factor) == (1.0, 1.0):
+            return res                   # x / 1 == x
+        # filled on the device (no host-to-device copy, which a CUDA graph
+        # would replay from its captured host buffer)
+        sf = torch.full((4,), float(scale_factor[0]), dtype=torch.float32,
+                        device=res.boxes.device)
+        sf[1::2] = float(scale_factor[1])
+        scale_factor = sf
+    # divided tensor by tensor, an IEEE division
+    return res._replace(boxes=res.boxes / scale_factor)

@@ -96,7 +96,13 @@ def update(mean: torch.Tensor, cov: torch.Tensor, measurement: torch.Tensor,
     proj_mean, proj_cov = project(mean, cov, bbox_score, use_nsa)
     b = cov[..., :, :4]                              # cov @ H^T
     chol = _cholesky(proj_cov)
-    gain = torch.cholesky_solve(b.transpose(-1, -2), chol).transpose(-1, -2)
+    # the two triangular solves of cholesky_solve, written out: on the card
+    # torch sends a batched cholesky_solve to MAGMA, whose queue waits for
+    # the stream, while batched triangular solves are cuBLAS launches
+    half = torch.linalg.solve_triangular(chol, b.transpose(-1, -2),
+                                         upper=False)
+    gain = torch.linalg.solve_triangular(chol.transpose(-1, -2), half,
+                                         upper=True).transpose(-1, -2)
     innovation = measurement - proj_mean
     new_mean = mean + (gain @ innovation[..., None])[..., 0]
     new_cov = cov - gain @ proj_cov @ gain.transpose(-1, -2)

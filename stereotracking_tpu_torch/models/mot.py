@@ -9,12 +9,17 @@ un-inflation; depth re-extracted on the un-inflated boxes (unless
 ``reuse_det_depth``).  Camera-motion compensation is not ported.
 
 ``predict_frames_batched`` advances S streams one frame each in one pass
-(every kernel launched once for all S); ``predict_frame`` is its one-stream
-case.  ``fetch_result`` / ``result_to_host`` take a ``FrameResult`` off the
-card in one synchronisation, as the JAX package's one ``jax.device_get``.
+(every kernel launched once for all S), reading nothing back to the host;
+``predict_frame`` is its one-stream case and ``step_raw`` the step from raw
+frames that ``OCSORTDisparity.track_raw`` and
+``MultiStreamTracker.track_raw`` replay as one CUDA graph on the card
+(models/captured_step.py).  ``fetch_result`` / ``result_to_host`` take a
+``FrameResult`` off the card in one synchronisation, as the JAX package's
+one ``jax.device_get``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -25,6 +30,7 @@ from ..ops.depth import (disp_to_depth, extract_box_depths,
 from ..structures.bbox import scale_bbox
 from ..utils.devices import checked_device, to_device
 from . import tracker as trk
+from .captured_step import CapturedStep
 from .csp_darknet import StageBackends
 from .detector import DetectorConfig, YOLOXDetector, detector_predict
 from .preprocessor import padded_shape, preprocess_frame_pure
@@ -61,17 +67,18 @@ class FrameResult(NamedTuple):
 
 @torch.no_grad()
 def predict_frames_batched(module: YOLOXDetector, states: trk.TrackState,
-                           inputs: dict, frame_ids: Sequence[int],
-                           cfg: MOTConfig,
-                           scale_factor: Tuple[float, float] = (1.0, 1.0),
+                           inputs: dict, frame_ids, cfg: MOTConfig,
+                           scale_factor=(1.0, 1.0),
                            ) -> Tuple[trk.TrackState, FrameResult]:
     """Advance S streams one frame each.
 
     ``states``: a ``TrackState`` with a leading stream axis; ``inputs``:
     dict of (S, H, W, C) tensors from ``preprocess_frame_pure`` (and the
     raw (S, h, w, 3) 'img_u8' / (S, h, w) 'disp_u16' when the stems run as
-    kernels); ``frame_ids``: S host ints.  Every FrameResult field has a
-    leading S."""
+    kernels); ``frame_ids``: S host ints or an (S,) int32 tensor on the
+    device; ``scale_factor`` as ``detector_predict`` takes it.  Every
+    FrameResult field has a leading S.  Nothing is read back to the
+    host."""
     det = detector_predict(module, inputs, scale_factor, cfg.backends)
     disp = inputs['disp_postp'][..., 0]
     if cfg.depth_mode == 'corner_guided' and cfg.disp_fixed_point:
@@ -140,6 +147,22 @@ def preprocess_raw(img_u8: torch.Tensor, disp_u16: torch.Tensor,
     inputs['img_u8'] = img_u8.contiguous()
     inputs['disp_u16'] = disp_u16.contiguous()
     return inputs
+
+
+def step_raw(module: YOLOXDetector, cfg: MOTConfig,
+             states: trk.TrackState, img_u8: torch.Tensor,
+             disp_u16: torch.Tensor, frame_ids, scale_factor=(1.0, 1.0),
+             depth_raw: Optional[torch.Tensor] = None) -> FrameResult:
+    """One step of S streams from raw (S, H, W, 3) uint8 / (S, H, W)
+    uint16 frames (and optional (S, H, W) ground-truth depth), the new
+    track state written into ``states`` in place: the step that
+    ``CapturedStep`` captures."""
+    oh, ow = padded_shape(*img_u8.shape[1:3])
+    inputs = preprocess_raw(img_u8, disp_u16, oh, ow, depth_raw)
+    new, res = predict_frames_batched(module, states, inputs, frame_ids, cfg,
+                                      scale_factor)
+    trk.assign_state(states, new)
+    return res
 
 
 def predict_frame_raw(module: YOLOXDetector, state: trk.TrackState,
@@ -224,7 +247,11 @@ class OCSORTDisparity:
     """Streaming wrapper: holds the detector, its weights and the track
     state, and runs one frame per call, on the card unless ``device`` says
     otherwise.  ``dtype`` is the detector's compute dtype (float32 unless
-    given; see ``detector_module``)."""
+    given; see ``detector_module``).  ``track_raw`` replays one CUDA graph
+    per frame on the card (models/captured_step.py) and runs eagerly on the
+    CPU; the state (``states``, one stream) is updated in place.  Frame ids
+    grow by at least one per frame or restart at 0 (host ids out of that
+    order raise: ``tracker.FrameIdOrder``)."""
 
     def __init__(self, cfg: MOTConfig = MOTConfig(),
                  module: Optional[YOLOXDetector] = None,
@@ -234,10 +261,21 @@ class OCSORTDisparity:
         self.device = checked_device(device)
         module = detector_module(cfg, module, dtype, seed)
         self.module = module.to(self.device).eval()
-        self.state = trk.init_state(cfg.tracker, self.device)
+        self.states = trk.init_state(cfg.tracker, self.device, 1)
+        self._step = CapturedStep(self.module,
+                                  functools.partial(step_raw, self.module,
+                                                    cfg))
+        self._order = trk.FrameIdOrder()
+
+    @property
+    def state(self) -> trk.TrackState:
+        """The one stream's track state (views of ``states``)."""
+        return trk.first_stream(self.states)
 
     def reset(self):
-        self.state = trk.init_state(self.cfg.tracker, self.device)
+        trk.assign_state(self.states, trk.init_state(self.cfg.tracker,
+                                                     self.device, 1))
+        self._order.reset()
 
     def _as_tensor(self, x):
         if isinstance(x, np.ndarray):
@@ -246,24 +284,29 @@ class OCSORTDisparity:
 
     def track(self, inputs: dict, frame_id: int,
               scale_factor: Tuple[float, float] = (1.0, 1.0)) -> FrameResult:
+        """One frame from preprocessed inputs (``preprocess_frame_pure``;
+        the raw frames too when the stems run as kernels), eagerly."""
+        self._order.check(frame_id)
         inputs = {k: self._as_tensor(v) for k, v in inputs.items()}
-        self.state, result = predict_frame(self.module, self.state, inputs,
-                                           frame_id, self.cfg, scale_factor)
+        new, result = predict_frame(self.module, self.state, inputs,
+                                    frame_id, self.cfg, scale_factor)
+        trk.assign_state(self.state, new)
         return result
 
-    def track_raw(self, img_u8, disp_u16, frame_id: int,
+    def track_raw(self, img_u8, disp_u16, frame_id,
                   scale_factor: Tuple[float, float] = (1.0, 1.0),
                   depth_raw=None) -> FrameResult:
         """``track`` from raw frames: (H, W, 3) uint8 BGR + (H, W) uint16
-        fixed-point disparity (65535 = invalid), numpy or torch."""
+        fixed-point disparity (65535 = invalid), numpy or torch; ``frame_id``
+        an int or a 0-d tensor."""
         img_u8 = self._as_tensor(img_u8)
         disp_u16 = self._as_tensor(disp_u16)
-        oh, ow = padded_shape(*img_u8.shape[:2])
-        self.state, result = predict_frame_raw(
-            self.module, self.state, img_u8, disp_u16, frame_id, self.cfg,
-            oh, ow, scale_factor,
-            None if depth_raw is None else self._as_tensor(depth_raw))
-        return result
+        depth = None if depth_raw is None else self._as_tensor(depth_raw)[None]
+        fid = frame_id.reshape(1) if torch.is_tensor(frame_id) else [frame_id]
+        self._order.check(fid)
+        result = self._step(self.states, img_u8[None], disp_u16[None], fid,
+                            scale_factor, depth)
+        return trk.first_stream(result)
 
 
 @torch.no_grad()

@@ -11,16 +11,18 @@ smoothing of recovered tracks; Kalman update and bookkeeping; new tracks;
 eviction.
 
 Where the JAX package branches on device (``lax.cond`` between the init
-path and the main path, the smoothing ``while_loop``), this port reads the
-decision on the host, one device-to-host sync each for all streams: a
-batch whose streams disagree runs both paths and selects per stream, as
-``vmap`` of ``lax.cond`` does.  The three assignments solve on the host
-(ops/assignment.py), one copy each way for all streams.
+path and the main path and for the reset at frame 0, the smoothing
+``while_loop``), this port stays branch-free: both paths run for every
+stream and ``torch.where`` selects per stream, as ``vmap`` of ``lax.cond``
+does, and the smoothing replay runs a fixed trip count (``replay_bound``)
+whose extra iterations are exact no-ops.  The three assignments run on the
+inputs' device (ops/assignment.py).  So a step reads nothing back to the
+host and can be captured in a CUDA graph (models/captured_step.py).
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Sequence, Tuple, Union
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -179,35 +181,99 @@ def _assign(cost, row_mask, col_mask, cfg: TrackerConfig):
                                         1.0 - cfg.match_iou_thr)
 
 
-def step(state: TrackState, dets: Detections,
-         frame_id: Union[int, Sequence[int]], cfg: TrackerConfig
-         ) -> Tuple[TrackState, TrackerOutput]:
+def replay_bound(cfg: TrackerConfig) -> int:
+    """The largest ``miss_count`` a track can carry into the step that
+    recovers it, and so the smoothing replay's fixed trip count.
+
+    A track's ``miss_count`` is reset to 0 whenever it is matched (its
+    ``last_frame`` set to that frame) or spawned, and grows by one per main
+    path step that leaves it unmatched, while the frame id grows by at
+    least one per step: so ``miss_count <= f - last_frame`` after the step
+    of frame f.  ``_evict`` drops a track once ``f - last_frame >=
+    num_frames_retain``, so a track still active after a step has
+    ``miss_count <= num_frames_retain - 1``, and that is its
+    ``unmatch_len`` when the next step recovers it.  This holds while each
+    stream's frame ids increase by at least one per step or restart at 0:
+    the tracker objects hold host ids to that order (``FrameIdOrder``), and
+    a caller giving ids as device tensors keeps them in it."""
+    return max(cfg.num_frames_retain - 1, 0)
+
+
+class FrameIdOrder:
+    """The frame-id order ``replay_bound`` relies on, for one tracker
+    object's streams: each stream's id is 0 (a restart) or larger than its
+    id of the step before.  ``check`` raises on host ids out of that order
+    and reads nothing from the device; ids given as a tensor are not
+    checked (that would read them back to the host), and the check starts
+    afresh after them and after ``reset``."""
+
+    def __init__(self):
+        self.last: Optional[np.ndarray] = None
+
+    def reset(self) -> None:
+        self.last = None
+
+    def check(self, frame_ids) -> None:
+        if torch.is_tensor(frame_ids):
+            self.last = None
+            return
+        ids = np.asarray(frame_ids, np.int64).reshape(-1)
+        if self.last is not None and ids.shape == self.last.shape:
+            bad = np.flatnonzero((ids != 0) & (ids <= self.last))
+            if bad.size:
+                s = int(bad[0])
+                raise ValueError(
+                    f'stream {s}: frame id {ids[s]} after {self.last[s]}; a '
+                    f'stream\'s frame ids must grow by at least one per step '
+                    f'or restart at 0')
+        self.last = ids
+
+
+def frame_ids_on(frame_id, n_streams: int, device) -> torch.Tensor:
+    """Frame ids as an (S,) int32 tensor on ``device``: a tensor stays on
+    the device it is on (moved only when it is elsewhere); host ints go
+    through pinned memory (``to_device``), so neither reads the device."""
+    if torch.is_tensor(frame_id):
+        fid = frame_id.to(device=device, dtype=torch.int32).reshape(-1)
+    else:
+        fid = to_device(np.asarray(frame_id, np.int32).reshape(-1), device)
+    if fid.shape[0] != n_streams:
+        raise ValueError(f'{n_streams} frame ids expected, got '
+                         f'{fid.shape[0]}')
+    return fid
+
+
+def step(state: TrackState, dets: Detections, frame_id,
+         cfg: TrackerConfig) -> Tuple[TrackState, TrackerOutput]:
     """Advance the tracker one frame.  One stream: fields (K, ...) and
-    (Nd, ...), ``frame_id`` a host int.  S streams: every field with a
-    leading stream axis and ``frame_id`` S host ints, one per stream (a
-    stream at frame 0 starts afresh).  Host syncs do not grow with S."""
+    (Nd, ...), ``frame_id`` an int or a 0-d tensor.  S streams: every field
+    with a leading stream axis and ``frame_id`` S ints or an (S,) int32
+    tensor (a stream at frame 0 starts afresh; each stream's ids grow by at
+    least one per step or restart at 0, see ``replay_bound``).  Branch-free: both the
+    init and the main path run and are selected per stream, and nothing is
+    read back to the host."""
     if state.num_tracks.dim() == 0:
         st, out = step(add_stream_axis(state), add_stream_axis(dets),
-                       [int(frame_id)], cfg)
+                       frame_id if torch.is_tensor(frame_id) else [frame_id],
+                       cfg)
         return first_stream(st), first_stream(out)
     dev = state.active.device
-    fids = [int(f) for f in frame_id]
-    fid = to_device(np.asarray(fids, np.int32), dev)
-    reset = np.asarray(fids) == 0
-    if reset.any():
-        fresh = init_state(cfg, dev, len(fids))
-        state = fresh if reset.all() else _select_streams(
-            to_device(reset, dev), fresh, state)
+    n_streams = state.active.shape[0]
+    fid = frame_ids_on(frame_id, n_streams, dev)
+    state = _select_streams(fid == 0, init_state(cfg, dev, n_streams), state)
     use_init = ~state.active.any(1) | ~dets.valid.any(1)
-    flags = use_init.tolist()                       # one sync
-    if all(flags):
-        return _init_path(state, dets, fid, cfg)
-    if not any(flags):
-        return _main_path(state, dets, fid, cfg)
-    a, b = _init_path(state, dets, fid, cfg), _main_path(state, dets, fid,
-                                                         cfg)
+    a = _init_path(state, dets, fid, cfg)
+    b = _main_path(state, dets, fid, cfg)
     return (_select_streams(use_init, a[0], b[0]),
             _select_streams(use_init, a[1], b[1]))
+
+
+def assign_state(dst: TrackState, src: TrackState) -> None:
+    """Write ``src`` into ``dst``'s tensors in place: a captured step
+    (models/captured_step.py) reads and writes those very tensors."""
+    for d, s in zip(dst, src):
+        if d is not s:
+            d.copy_(s)
 
 
 def add_stream_axis(t: NamedTuple):
@@ -293,8 +359,7 @@ def _main_path(state, dets, fid, cfg):
         (unmatch_len[..., None].to(torch.float32) + 1.0)
     mean = torch.where(recovered[..., None], state.saved_mean, state.mean)
     cov = torch.where(recovered[..., None, None], state.saved_cov, state.cov)
-    max_replay = int(unmatch_len.max())                         # one sync
-    for i in range(max_replay):
+    for i in range(replay_bound(cfg)):      # no-ops past unmatch_len
         virtual = state.last_bbox + float(i + 1) * shift
         m2, c2 = kalman.update(mean, cov, bbox_xyxy_to_cxcyah(virtual))
         apply = recovered & (i < unmatch_len)
@@ -311,9 +376,9 @@ def _main_path(state, dets, fid, cfg):
     new_tentative = torch.where(now_confirmed, False, state.tentative)
 
     R = cfg.ring_size
-    onehot = (torch.nn.functional.one_hot(
-        torch.remainder(state.obs_count, R).long(), R).bool()
-        & state.active[..., None])
+    onehot = ((torch.remainder(state.obs_count, R)[..., None]
+               == torch.arange(R, device=state.obs_count.device))
+              & state.active[..., None])
     obs_ring = torch.where(onehot[..., None], match_bbox[:, :, None, :],
                            state.obs_ring)
     obs_ring_valid = torch.where(onehot, slot_matched[..., None],

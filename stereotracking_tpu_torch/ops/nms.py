@@ -3,13 +3,12 @@
 Port of ``stereotracking_tpu/ops/nms.py``: candidates in descending score
 order (a STABLE sort, so tied scores keep index order exactly as
 ``jax.lax.top_k`` does — ``torch.topk`` does not promise it), class offsets
-so one IoU pass serves all classes, and the greedy keep set found as the
-fixed point of ``keep[j] = not any(keep[i] and iou[i, j] > thr, i < j)``.
-Inputs may carry leading stream dims, (..., A): all streams run one pass
-at a time.  The fixed-point loop checks convergence on the host once per
-``PASSES_PER_CHECK`` passes for all streams together: a pass past the fixed
-point changes nothing, so the extra passes cost a little device time and
-save host round trips.
+so one IoU pass serves all classes, and the greedy keep set
+(``nms_cuda.nms_keep``: a CUDA kernel for CUDA tensors, the dense
+fixed-point loop for CPU tensors), then the kept candidates compacted into
+``max_out`` slots.  Inputs may carry leading stream dims, (..., A): all
+streams are one pass, and on the card nothing reads a value back to the
+host.
 """
 from __future__ import annotations
 
@@ -17,9 +16,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from ..structures.bbox import bbox_iou_matrix
-
-PASSES_PER_CHECK = 8
+from .nms_cuda import nms_keep
 
 
 class NMSResult(NamedTuple):
@@ -53,18 +50,7 @@ def batched_nms(boxes: torch.Tensor, scores: torch.Tensor,
     span = torch.where(torch.isfinite(top_boxes), top_boxes, 0.0).amax(
         dim=(1, 2), keepdim=True) + 1.0
     offs = top_labels.to(torch.float32)[..., None] * span
-    iou = bbox_iou_matrix(top_boxes + offs, top_boxes + offs)
-    rows = torch.arange(k, device=boxes.device)
-    sup = ((iou > iou_threshold) & (rows[:, None] < rows[None, :])
-           & finite[:, :, None] & finite[:, None, :])
-
-    keep = finite
-    for _ in range(0, k, PASSES_PER_CHECK):
-        for _ in range(PASSES_PER_CHECK):
-            prev, keep = keep, ~(sup & keep[:, :, None]).any(1)
-        if bool((prev == keep).all()):                  # one sync
-            break
-    keep = keep & finite
+    keep = nms_keep(top_boxes + offs, finite, iou_threshold)
 
     order = torch.sort((~keep).to(torch.int8), dim=1,
                        stable=True).indices[:, :max_out]

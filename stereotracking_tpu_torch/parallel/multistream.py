@@ -5,8 +5,10 @@ Port of ``stereotracking_tpu/parallel/multistream.py``.  The JAX package
 function of the step takes that axis itself: each kernel launches once for
 all S streams (a grid axis, as ``vmap`` over a ``pallas_call`` adds one),
 the detector's float32 layers batch the streams, the depth statistics of
-all S * N boxes are one launch, and the tracker's host decisions and
-assignments are one sync for all streams, not one per stream.
+all S * N boxes are one launch, the tracker's assignments of all streams
+are one launch each, and nothing is read back to the host.  ``track_raw``
+replays the step as one CUDA graph on the card (models/captured_step.py)
+and runs it eagerly on the CPU.
 
 Not ported: the device mesh (``mesh`` / ``shard_inputs``, multi-GPU stream
 sharding) and the TPU stem-pack layout (``pack_frames`` / ``track_packed*``:
@@ -14,6 +16,7 @@ the port's stem kernel reads raw frames).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -21,9 +24,9 @@ import torch
 
 from ..models import tracker as trk
 from ..models.detector import YOLOXDetector
+from ..models.captured_step import CapturedStep
 from ..models.mot import (FrameResult, MOTConfig, detector_module,
-                          predict_frames_batched, preprocess_raw)
-from ..models.preprocessor import padded_shape
+                          predict_frames_batched, step_raw)
 from ..utils.devices import checked_device, to_device
 
 
@@ -37,7 +40,9 @@ class MultiStreamTracker:
     """Holds the detector, its weights and the S streams' track states;
     each call advances every stream one frame (or T frames), on the card
     unless ``device`` says otherwise.  ``dtype`` is the detector's compute
-    dtype, as ``OCSORTDisparity``'s."""
+    dtype, as ``OCSORTDisparity``'s.  The states (``states``) are updated
+    in place.  Each stream's frame ids grow by at least one per step or
+    restart at 0 (host ids out of that order raise)."""
 
     def __init__(self, cfg: MOTConfig, n_streams: int,
                  module: Optional[YOLOXDetector] = None, device='cuda',
@@ -48,36 +53,46 @@ class MultiStreamTracker:
         module = detector_module(cfg, module, dtype, seed)
         self.module = module.to(self.device).eval()
         self.states = init_stream_states(cfg, n_streams, self.device)
+        self._step = CapturedStep(self.module,
+                                  functools.partial(step_raw, self.module,
+                                                    cfg))
+        self._order = trk.FrameIdOrder()
 
     def reset(self):
-        self.states = init_stream_states(self.cfg, self.n_streams,
-                                         self.device)
+        trk.assign_state(self.states, init_stream_states(
+            self.cfg, self.n_streams, self.device))
+        self._order.reset()
 
     def _as_tensor(self, x) -> torch.Tensor:
         if isinstance(x, np.ndarray):
             return to_device(x, self.device)   # pinned: no host sync
         return x.to(self.device)
 
-    def _frame_ids(self, frame_ids) -> list:
-        fids = np.asarray(frame_ids, np.int64).reshape(-1).tolist()
+    def _frame_ids(self, frame_ids):
+        """(S,) frame ids: a tensor as it is, host values as a list, held to
+        ``tracker.FrameIdOrder``."""
+        fids = (frame_ids.reshape(-1) if torch.is_tensor(frame_ids) else
+                np.asarray(frame_ids, np.int64).reshape(-1).tolist())
         if len(fids) != self.n_streams:
             raise ValueError(f'{self.n_streams} frame ids expected, got '
                              f'{len(fids)}')
+        self._order.check(fids)
         return fids
 
     def track(self, inputs: dict, frame_ids,
               scale_factor: Tuple[float, float] = (1.0, 1.0)) -> FrameResult:
-        """Advance all streams one frame from preprocessed inputs: dict of
-        (S, 1, H, W, C) tensors (stream-major, the per-frame batch dim of
-        ``preprocess_frame_pure`` kept, as the JAX tracker takes them; the
-        raw 'img_u8' (S, h, w, 3) / 'disp_u16' (S, h, w) too when the stems
-        run as kernels); ``frame_ids``: (S,)."""
+        """Advance all streams one frame from preprocessed inputs, eagerly:
+        dict of (S, 1, H, W, C) tensors (stream-major, the per-frame batch
+        dim of ``preprocess_frame_pure`` kept, as the JAX tracker takes
+        them; the raw 'img_u8' (S, h, w, 3) / 'disp_u16' (S, h, w) too when
+        the stems run as kernels); ``frame_ids``: (S,)."""
         inputs = {k: self._as_tensor(v) for k, v in inputs.items()}
         inputs = {k: v if k in ('img_u8', 'disp_u16') else v.flatten(0, 1)
                   for k, v in inputs.items()}
-        self.states, result = predict_frames_batched(
+        new, result = predict_frames_batched(
             self.module, self.states, inputs, self._frame_ids(frame_ids),
             self.cfg, scale_factor)
+        trk.assign_state(self.states, new)
         return result
 
     def track_raw(self, imgs_u8, disps_u16, frame_ids,
@@ -92,20 +107,17 @@ class MultiStreamTracker:
         if imgs_u8.shape[0] != self.n_streams:
             raise ValueError(f'{self.n_streams} streams expected, got '
                              f'{tuple(imgs_u8.shape)}')
-        oh, ow = padded_shape(*imgs_u8.shape[1:3])
-        inputs = preprocess_raw(imgs_u8, disps_u16, oh, ow)
-        self.states, result = predict_frames_batched(
-            self.module, self.states, inputs, self._frame_ids(frame_ids),
-            self.cfg, scale_factor)
-        return result
+        return self._step(self.states, imgs_u8, disps_u16,
+                          self._frame_ids(frame_ids), scale_factor)
 
     def track_raw_chunk(self, imgs_u8, disps_u16, frame_ids: Sequence,
                         scale_factor: Tuple[float, float] = (1.0, 1.0)
                         ) -> FrameResult:
         """``track_raw`` over T frames per stream: ``imgs_u8``
         (T, S, H, W, 3), ``disps_u16`` (T, S, H, W), ``frame_ids`` (T, S);
-        the states carry from frame to frame as in the JAX ``lax.scan``.
-        Returns the FrameResults stacked on a leading T axis."""
+        the states carry from frame to frame as in the JAX ``lax.scan``, one
+        graph replay per frame on the card.  Returns the FrameResults
+        stacked on a leading T axis."""
         results = [self.track_raw(imgs_u8[t], disps_u16[t], frame_ids[t],
                                   scale_factor)
                    for t in range(len(frame_ids))]

@@ -308,3 +308,179 @@ def test_depth_kernel_strided_boxes(dev, frames):
     want = depth_cuda.box_depths(disp, boxes, valid, 32, 160.0)
     for g, w_ in zip(got, want):
         assert torch.equal(g, w_)
+
+
+def _jv_inputs(dev, streams, seed=2):
+    """The JV problems that linear_assignment_with_limit hands the kernel
+    for device_step_cases' assignment cases at ``streams`` streams."""
+    from device_step_cases import LIMIT, assignment_cases
+    from stereotracking_tpu_torch.ops.assignment import jv_problem
+    for name, cost, rm, cm in assignment_cases(seed, streams):
+        ext, need, _, _ = jv_problem(torch.from_numpy(cost).to(dev),
+                                     torch.from_numpy(rm).to(dev),
+                                     torch.from_numpy(cm).to(dev), LIMIT)
+        yield name, cost, rm, cm, ext, need
+
+
+@pytest.mark.parametrize('streams', [1, 8])
+def test_jv_kernel_exact(dev, streams):
+    """The JV kernel against its numpy plain version on the CPU tests'
+    cases (masks, exact ties, all-star, all-conflicted, at the limit):
+    row2col exact, and the whole assignment equal to the CPU one."""
+    from device_step_cases import LIMIT
+    from stereotracking_tpu_torch.ops import assignment_cuda
+    from stereotracking_tpu_torch.ops.assignment import \
+        linear_assignment_with_limit
+    for name, cost, rm, cm, ext, need in _jv_inputs(dev, streams):
+        before = _kernels.launch_counts()['assignment']
+        got = assignment_cuda.jv_assign(ext, need)
+        assert _kernels.launch_counts()['assignment'] == before + 1
+        want = assignment_cuda.jv_assign_plain(ext.cpu(), need.cpu())
+        assert torch.equal(got.cpu(), want), name
+        rows, cols = linear_assignment_with_limit(
+            torch.from_numpy(cost).to(dev), torch.from_numpy(rm).to(dev),
+            torch.from_numpy(cm).to(dev), LIMIT)
+        r1, c1 = linear_assignment_with_limit(
+            torch.from_numpy(cost), torch.from_numpy(rm),
+            torch.from_numpy(cm), LIMIT)
+        assert torch.equal(rows.cpu(), r1) and torch.equal(cols.cpu(), c1)
+
+
+@pytest.mark.parametrize('k', [100, 1000, 2048])
+def test_nms_kernel_exact(dev, k):
+    """The NMS kernel's keep set against the plain fixed point on the card,
+    exactly: chains of overlapping boxes, two labels, NaN boxes and
+    non-finite candidates, k not a multiple of 64."""
+    from device_step_cases import nms_case
+    from stereotracking_tpu_torch.ops import nms_cuda
+    boxes, scores, labels = nms_case(seed=3, streams=S, n=k)
+    boxes = torch.from_numpy(boxes).to(dev)
+    span = torch.where(torch.isfinite(boxes), boxes, 0.0).amax(
+        dim=(1, 2), keepdim=True) + 1.0
+    shifted = boxes + torch.from_numpy(labels).to(dev).float()[..., None] \
+        * span
+    finite = torch.from_numpy(scores).to(dev) > 0.2
+    finite[:, 7] = False
+    before = _kernels.launch_counts()['nms']
+    keep = nms_cuda.nms_keep(shifted, finite, 0.5)
+    assert _kernels.launch_counts()['nms'] == before + 1
+    want = nms_cuda.nms_keep_plain(shifted, finite, 0.5)
+    assert torch.equal(keep, want)
+    assert 0 < int(keep.sum()) < int(finite.sum())
+
+
+def _captured_world(dev):
+    """A flagship-width model with every stage kernel on, head biases at 3
+    (every anchor a candidate), and 6 steps of 8 streams of 96 x 160 raw
+    frames."""
+    from stereotracking_tpu_torch.models.csp_darknet import StageBackends
+    from stereotracking_tpu_torch.models.mot import MOTConfig
+    cfg = MOTConfig(backends=StageBackends('cuda', 'cuda', 'cuda', 'cuda'),
+                    reuse_det_depth=False)
+    det = YOLOXDetector(cfg.detector)
+    init_weights(det, torch.Generator().manual_seed(0))
+    head = det.bbox_head.head_module
+    with torch.no_grad():
+        for conv in (*head.multi_level_conv_cls, *head.multi_level_conv_obj):
+            conv.bias.fill_(3.0)
+    det = det.to(dev).eval()
+    g = torch.Generator().manual_seed(5)
+    img = torch.randint(0, 256, (6, 8, H, W, 3), generator=g,
+                        dtype=torch.uint8)
+    disp = torch.randint(16, 1600, (6, 8, H, W), generator=g,
+                         dtype=torch.int32)
+    disp[:, :, :H // 2] = 65535
+    return cfg, det, img.to(dev), disp.to(dev).to(torch.uint16)
+
+
+def test_captured_step_equals_eager(dev):
+    """MultiStreamTracker's graph-replayed step over 6 frames of 8 streams
+    against eager predict_frames_batched from the same states: ids and
+    validity exact, boxes within 1e-2 px; one graph for the 6 frames; a
+    result fetched one step behind is its own step's."""
+    from stereotracking_tpu_torch.models.mot import (fetch_result,
+                                                     predict_frames_batched,
+                                                     preprocess_raw)
+    from stereotracking_tpu_torch.models.preprocessor import padded_shape
+    from stereotracking_tpu_torch.parallel.multistream import (
+        MultiStreamTracker, init_stream_states)
+    cfg, det, img, disp = _captured_world(dev)
+    ms = MultiStreamTracker(cfg, 8, module=det, device=dev)
+    states = init_stream_states(cfg, 8, dev)
+    pending = None
+    for t in range(6):
+        fids = torch.full((8,), t, dtype=torch.int32, device=dev)
+        got = ms.track_raw(img[t], disp[t], fids)
+        fetch = fetch_result(got)
+        inputs = preprocess_raw(img[t], disp[t], *padded_shape(H, W))
+        states, want = predict_frames_batched(det, states, inputs, fids, cfg)
+        if pending is not None:           # step t - 1, read after step t
+            wait, prev = pending
+            host = wait()
+            for name in ('track_ids', 'track_valid', 'det_valid'):
+                assert (getattr(host, name)
+                        == getattr(prev, name).cpu().numpy()).all(), name
+            assert abs(host.track_bboxes
+                       - prev.track_bboxes.cpu().numpy()).max() <= 1e-2
+        pending = (fetch, want)
+        assert torch.equal(got.track_ids, want.track_ids), t
+        assert torch.equal(got.track_valid, want.track_valid), t
+        assert torch.equal(got.det_valid, want.det_valid), t
+        err = (got.track_bboxes - want.track_bboxes).abs().max()
+        assert float(err) <= 1e-2, (t, float(err))
+    assert int(want.track_valid.sum()) > 0
+    assert ms._step.captures == 1
+    for a, b in zip(ms.states, states):
+        assert torch.equal(a, b) or a.dtype.is_floating_point
+
+
+def test_captured_scale_factor_is_an_input(dev):
+    """The scale factor is one of the graph's inputs: frames with three
+    scale factors replay one graph and equal the eager step with theirs
+    (ids and validity exact, boxes within 1e-2 px); a new frame size
+    captures anew and the tracker holds only that graph."""
+    from stereotracking_tpu_torch.models import tracker as trk
+    from stereotracking_tpu_torch.models.mot import (OCSORTDisparity,
+                                                     predict_frame_raw)
+    from stereotracking_tpu_torch.models.preprocessor import padded_shape
+    cfg, det, img, disp = _captured_world(dev)
+    one = OCSORTDisparity(cfg, module=det, device=dev)
+    state = trk.init_state(cfg.tracker, dev)
+    for t, sf in enumerate([(1.0, 1.0), (0.5, 0.5), (0.75, 0.6)]):
+        got = one.track_raw(img[t, 0], disp[t, 0], t, scale_factor=sf)
+        state, want = predict_frame_raw(det, state, img[t, 0], disp[t, 0], t,
+                                        cfg, *padded_shape(H, W), sf)
+        for name in ('track_ids', 'track_valid', 'det_valid'):
+            assert torch.equal(getattr(got, name), getattr(want, name)), name
+        err = (got.det_bboxes - want.det_bboxes).abs().max()
+        assert float(err) <= 1e-2, (sf, float(err))
+    assert one._step.captures == 1
+    small = (img[3, 0, :64, :128].contiguous(),
+             disp[3, 0, :64, :128].contiguous())
+    one.track_raw(*small, 3)
+    assert one._step.captures == 2
+    assert one._step._graph.img.shape == (1, 64, 128, 3)
+
+
+def test_captured_one_stream_with_depth_equals_eager(dev):
+    """OCSORTDisparity's replayed step with a ground-truth depth map (its
+    own graph key) against the eager predict_frame_raw over 3 frames: ids,
+    validity and the ground-truth depth column exact."""
+    from stereotracking_tpu_torch.models import tracker as trk
+    from stereotracking_tpu_torch.models.mot import (OCSORTDisparity,
+                                                     predict_frame_raw)
+    from stereotracking_tpu_torch.models.preprocessor import padded_shape
+    cfg, det, img, disp = _captured_world(dev)
+    depth = torch.rand((3, H, W), generator=torch.Generator().manual_seed(7)
+                       ).to(dev) * 80
+    one = OCSORTDisparity(cfg, module=det, device=dev)
+    state = trk.init_state(cfg.tracker, dev)
+    for t in range(3):
+        got = one.track_raw(img[t, 0], disp[t, 0], t, depth_raw=depth[t])
+        state, want = predict_frame_raw(det, state, img[t, 0], disp[t, 0], t,
+                                        cfg, *padded_shape(H, W),
+                                        depth_raw=depth[t])
+        for name in ('track_ids', 'track_valid', 'track_gt_depths'):
+            assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert int((want.track_gt_depths > 0).sum()) > 0
+    assert one._step.captures == 1
