@@ -11,27 +11,29 @@ Phases, in order; any failure exits non-zero:
 2. build: compiles the CUDA kernels from ``stereotracking_tpu_torch/csrc``
    (one nvcc per source, all at once, sm_90a) and prints the build time;
    compiles the sources of the kernels redesigned for the H100 (the stem,
-   stages 1-3, depth) and of the JV and NMS kernels once more with
-   ``-Xptxas -v`` and prints their registers, shared memory and spills;
+   stages 1-3, depth, the JV and NMS) once more with ``-Xptxas -v`` and
+   prints their registers, shared memory and spills;
 3. kernels: each kernel against its plain PyTorch version on the same
    inputs, at one stream and at 8 streams of 1080x1920 raw frames padded to
    1088x1920, with the tolerance stated beside each check; kernel, plain
    version and (where one PyTorch call computes the same function) that
    call timed with CUDA events; each kernel's bound from its bytes and
-   operations; for the stem, stages 1-3 and depth the achieved rate and
-   share of the bound, and for stages 1-3 the weight bytes read from L2
-   per region before (wmma B fragments from device memory) and after (the
-   slice ring); the float32 stage-3 modules (TF32 off) timed beside the
-   stage-3 kernel; for depth also its vote branches against the plain
-   composite's and the host wall of one whole extraction beside the eager
-   box scalars + epilogue it runs inside; its device time and the kernel
-   launches of each (one per extraction) come from ``torch.profiler``
+   operations; for the stem and stages 1-3 the achieved rate and share of
+   the bound, and for stages 1-3 the weight bytes read from L2 per region
+   before (wmma B fragments from device memory) and after (the slice
+   ring); the float32 stage-3 modules (TF32 off) timed beside the stage-3
+   kernel; for depth also its vote branches against the plain composite's
+   and the host wall of one whole extraction beside the eager box scalars
+   + epilogue it runs inside; the JV and NMS kernels exactly against their
+   plain versions on the inputs that the second of two eager main-path
+   steps hands them (the JV also on an all-conflicted problem, the NMS
+   with the main path's cap ``max_keep`` = ``max_out`` and without one,
+   also on candidates of the same shape that suppress, from
+   ``tests/device_step_cases.py``, where every stream must keep some and
+   drop some); the device times of the depth, JV and NMS kernels (and the
+   kernel launches of one depth extraction) come from ``torch.profiler``
    after the timed phases, since a profiler session slows the host work
-   after it; the JV and NMS kernels exactly against their plain versions
-   on the inputs that the second of two eager main-path steps hands them
-   (the JV also on an all-conflicted problem, the NMS also on candidates
-   of the same shape that suppress, from ``tests/device_step_cases.py``,
-   where every stream must keep some and drop some);
+   after it;
 4. reference: on a small frame the kernel path's head outputs (stage 3
    through its kernel too) must agree with the float32 module path;
 5. slice: ``build_model(flagship config)`` on the card, ``track_raw`` over
@@ -82,7 +84,8 @@ Phases, in order; any failure exits non-zero:
 ``--profile`` adds, after the timed phases, a ``torch.profiler`` window
 over two replayed steps of one stream in float32 and of 8 streams in
 float32 and in bf16, and prints the device time by kernel, the card's busy
-share and each hand-written kernel's launches in the trace.
+share and each hand-written kernel's launches and device time per step in
+the trace.
 
 Output: the per-phase lines, then the card line and one JSON line of kernel
 results (8-stream shapes; launches from the trace of phase 6's replayed
@@ -132,11 +135,11 @@ KERNELS = {
                         'tools/probe_stage1_variants.py:153'),
 }
 
-# kernels redesigned for the H100: their achieved rate, share of the bound
-# and ptxas resource usage are printed too
-REDESIGNED = ('stem', 'stage1', 'stage2', 'stage3', 'depth')
-# kernels whose ptxas registers, shared memory and spills are printed
-PTXAS = REDESIGNED + ('assignment', 'nms')
+# kernels redesigned for the H100: their ptxas registers, shared memory and
+# spills are printed, and their device time in torch.profiler (depth,
+# assignment, nms) or achieved rate and share of the bound (the others)
+REDESIGNED = ('stem', 'stage1', 'stage2', 'stage3', 'depth', 'assignment',
+              'nms')
 ALL_KERNELS = ('cuda',) * 4       # a StageBackends with every stage kernel
 
 
@@ -335,8 +338,9 @@ def check_kernels(model, frames, next_frames, device, iters=10):
     """Phase 3 at S = len(frames) streams: each kernel against its plain
     version, all timed, the assignment and NMS kernels on the inputs the
     main path gives them at its second step (``frames``, then
-    ``next_frames``); returns {name: result row} and the depth check's
-    torch.profiler function (``check_depth``)."""
+    ``next_frames``); returns {name: result row} and a function that adds
+    the depth, JV and NMS kernels' torch.profiler device times, to call
+    after the timed phases."""
     import torch
     import torch.nn.functional as F
     from stereotracking_tpu_torch.models.preprocessor import padded_shape
@@ -454,12 +458,18 @@ def check_kernels(model, frames, next_frames, device, iters=10):
           f'modules (model.backbone.stage3, TF32 off) {mod_ms:.4f} ms',
           flush=True)
 
-    res['depth'], trace = check_depth(model.cfg, img, disp_u16, oh, ow,
-                                      device, iters)
-    jv_in, nms_in = step_inputs(model, [frames, next_frames], device)
-    res['assignment'] = check_assignment(jv_in, device, iters)
-    res['nms'] = check_nms(nms_in, model.cfg.detector.score_thr, device,
-                           iters)
+    res['depth'], depth_trace = check_depth(model.cfg, img, disp_u16, oh, ow,
+                                            device, iters)
+    ins = nms_jv_inputs(model, frames, next_frames, device)
+    res['assignment'], jv_trace = check_assignment(ins['jv'],
+                                                   ins['conflicted'], iters)
+    res['nms'], nms_trace = check_nms(ins['nms'], ins['suppressing'], iters)
+
+    def trace():
+        depth_trace()
+        jv_trace()
+        nms_trace()
+
     return res, trace
 
 
@@ -622,7 +632,7 @@ def step_inputs(model, frames, device):
     two eager steps of ``predict_frames_batched`` over ``frames`` (a list
     of steps, each a list of S (img, disp)), the stage-3 kernel on, with
     the wrappers' arguments of the second step recorded: [(ext, need)] for
-    the 3 assignments and (boxes, finite, thr) for the NMS."""
+    the 3 assignments and (boxes, finite, thr, max_keep) for the NMS."""
     import torch
     from stereotracking_tpu_torch.apis.builder import build_mot_config
     from stereotracking_tpu_torch.models.mot import (predict_frames_batched,
@@ -641,9 +651,9 @@ def step_inputs(model, frames, device):
         seen['jv'].append((ext.clone(), need.clone()))
         return jv(ext, need)
 
-    def nms_rec(boxes, finite, thr):
-        seen['nms'].append((boxes.clone(), finite.clone(), thr))
-        return keep(boxes, finite, thr)
+    def nms_rec(boxes, finite, thr, max_keep=None):
+        seen['nms'].append((boxes.clone(), finite.clone(), thr, max_keep))
+        return keep(boxes, finite, thr, max_keep)
 
     assignment.jv_assign, nms.nms_keep = jv_rec, nms_rec
     try:
@@ -660,24 +670,48 @@ def step_inputs(model, frames, device):
     return seen['jv'], seen['nms'][0]
 
 
-def check_assignment(jv_inputs, device, iters):
-    """The JV kernel against its numpy plain version, exactly, on the main
-    path's 3 problems of one step and on an all-conflicted random problem
-    at the same shape (every active row through the JV); the main path's
-    problem with the most rows to assign timed.  Its bound is latency's
-    business: the bytes (each cost once) and one relaxation of C columns
-    per assigned row are microseconds' work, the kernel a chain of
-    dependent Dijkstra steps."""
+def conflicted_jv_input(n, k, c, device):
+    """(ext, need) of an all-conflicted random problem at the main path's
+    (n, k, c): every pair a candidate, every row through the JV."""
     import numpy as np
     import torch
-    from stereotracking_tpu_torch.ops import assignment_cuda as ac
     from stereotracking_tpu_torch.ops.assignment import jv_problem
-    n, k, c = jv_inputs[0][0].shape
     rng = np.random.RandomState(SEED)
     cost = torch.from_numpy(rng.uniform(0, 0.5, (n, k, c - k)).astype(
         np.float32)).to(device)
     ones = torch.ones((n, k), dtype=torch.bool, device=device)
     ext, need, _, _ = jv_problem(cost, ones, ones[:, :c - k], 0.9)
+    return ext, need
+
+
+def nms_jv_inputs(model, frames, next_frames, device):
+    """The JV and NMS kernels' inputs of phase 3 (and of
+    ``tools/time_nms_jv.py``): the main path's at its second step
+    (``step_inputs``), the all-conflicted JV problem and the suppressing
+    NMS candidates at the same shapes."""
+    jv_in, nms_in = step_inputs(model, [frames, next_frames], device)
+    n, k, c = jv_in[0][0].shape
+    boxes, finite, thr, max_keep = nms_in
+    return dict(jv=jv_in, conflicted=conflicted_jv_input(n, k, c, device),
+                nms=nms_in, suppressing=suppressing_nms_input(
+                    *finite.shape, thr, model.cfg.detector.score_thr,
+                    max_keep, device))
+
+
+def check_assignment(jv_inputs, conflicted, iters):
+    """The JV kernel against its numpy plain version, exactly, on the main
+    path's 3 problems of one step and on ``conflicted`` (every active row
+    through the JV); the main path's problem with the most rows to assign
+    and ``conflicted`` timed.  Its bound is latency's business: the bytes
+    (each cost once) and one relaxation of C columns per assigned row are
+    microseconds' work, the kernel a chain of dependent Dijkstra steps.
+    Returns the row and a function that adds the kernel's
+    ``torch.profiler`` device times (``device_ms``, ``worst_device_ms``),
+    to call after the timed phases."""
+    import torch
+    from stereotracking_tpu_torch.ops import assignment_cuda as ac
+    n, k, c = jv_inputs[0][0].shape
+    ext, need = conflicted
     cases = list(jv_inputs) + [(ext, need)]
     for i, (e, nd) in enumerate(cases):
         got = ac.jv_assign(e, nd)
@@ -691,27 +725,41 @@ def check_assignment(jv_inputs, device, iters):
              ms=time_ms(lambda: ac.jv_assign(e, nd), 10 * iters),
              plain_ms=time_ms(lambda: ac.jv_assign_plain(e.cpu(), nd.cpu()),
                               iters),
-             library_ms=None)
+             library_ms=None, rows=need_rows)
     r['bound_ms'], r['bound_by'] = bound(
         nbytes(e, nd) + n * k * 4, need_rows * c * 4, PEAK_F32)
     r['worst_ms'] = time_ms(lambda: ac.jv_assign(ext, need), iters)
+    cpl, staged = ac.jv_instance(k, c)
     print(f'kernel assignment x{n}: rows to assign per call '
           f'{rows[:-1]} (main path), {rows[-1]} (all conflicted); row2col '
-          f'exact on all 4; kernel {r["ms"]:.4f} ms ({need_rows} rows), '
-          f'all conflicted {r["worst_ms"]:.4f} ms, plain (numpy, with the '
-          f'copies to the host) {r["plain_ms"]:.4f} ms, library none, '
-          f'bound {r["bound_ms"]:.5f} ms ({r["bound_by"]}; latency bounds '
-          f'the kernel: a chain of dependent Dijkstra steps)', flush=True)
-    return r
+          f'exact on all 4; instance {cpl} columns per lane, cost '
+          f'{"staged in shared memory" if staged else "read from global"}; '
+          f'kernel {r["ms"]:.4f} ms ({need_rows} rows), all conflicted '
+          f'{r["worst_ms"]:.4f} ms, plain (numpy, with the copies to the '
+          f'host) {r["plain_ms"]:.4f} ms, library none, bound '
+          f'{r["bound_ms"]:.5f} ms ({r["bound_by"]}; latency bounds the '
+          f'kernel: a chain of dependent Dijkstra steps)', flush=True)
+
+    def trace():
+        r['device_ms'] = device_ms(lambda: ac.jv_assign(e, nd), 'jv_kernel',
+                                   10 * iters)
+        r['worst_device_ms'] = device_ms(lambda: ac.jv_assign(ext, need),
+                                         'jv_kernel', 10 * iters)
+        print(f'assignment x{n}: kernel {r["device_ms"]:.4f} ms device time '
+              f'({need_rows} rows), all conflicted '
+              f'{r["worst_device_ms"]:.4f} ms (torch.profiler; by CUDA '
+              f'events {r["ms"]:.4f} / {r["worst_ms"]:.4f} ms)', flush=True)
+
+    return r, trace
 
 
-def suppressing_nms_input(n, k, thr, score_thr, device):
-    """(boxes, finite, thr) as the main path's ``batched_nms`` hands them to
-    ``nms_keep`` (score-sorted top k, class-shifted), for
-    ``tests/device_step_cases.nms_case``'s n streams of k + k / 4
-    candidates: two labels, chains of 8 boxes each a few px from the one
-    before (so many pairs overlap past the threshold), tied scores and 5
-    NaN boxes with finite scores."""
+def suppressing_nms_input(n, k, thr, score_thr, max_out, device):
+    """(boxes, finite, thr, max_keep) as the main path's ``batched_nms``
+    hands them to ``nms_keep`` (score-sorted top k, class-shifted; max_keep
+    its ``max_out``), for ``tests/device_step_cases.nms_case``'s n
+    streams of k + k / 4 candidates: two labels, chains of 8 boxes each a
+    few px from the one before (so many pairs overlap past the threshold),
+    tied scores and 5 NaN boxes with finite scores."""
     import torch
     from stereotracking_tpu_torch.ops import nms
     sys.path.insert(0, os.path.join(REPO, 'tests'))
@@ -723,63 +771,118 @@ def suppressing_nms_input(n, k, thr, score_thr, device):
                              nms_case(seed=SEED, streams=n, n=k + k // 4))
     seen, keep = [], nms.nms_keep
 
-    def record(b, f, t):
-        seen.append((b.clone(), f.clone(), t))
-        return keep(b, f, t)
+    def record(b, f, t, max_keep=None):
+        seen.append((b.clone(), f.clone(), t, max_keep))
+        return keep(b, f, t, max_keep)
 
     nms.nms_keep = record
     try:
-        nms.batched_nms(boxes, scores, labels, thr, score_thr, k)
+        nms.batched_nms(boxes, scores, labels, thr, score_thr, k, max_out)
     finally:
         nms.nms_keep = keep
     return seen[0]
 
 
-def check_nms(nms_inputs, score_thr, device, iters):
+def nms_work(keep, finite, max_keep):
+    """IoUs that these inputs need for the capped keep set: per stream the
+    pairs of finite candidates up to the max_keep-th kept one (all k
+    without a cap or with fewer kept)."""
+    import torch
+    k = keep.shape[1]
+    pos = torch.arange(1, k + 1, device=keep.device)
+    if max_keep is None:
+        upto = torch.full((keep.shape[0],), k, device=keep.device)
+    else:
+        reached = torch.cumsum(keep.long(), 1) >= max_keep
+        upto = torch.where(reached.any(1),
+                           torch.where(reached, pos, k + 1).amin(1), k)
+    fin = (finite & (pos[None] <= upto[:, None])).sum(1).double()
+    return float((fin * (fin - 1) / 2).sum())
+
+
+def check_nms(nms_inputs, sup, iters):
     """The NMS kernel's keep set against the plain fixed point, exactly, on
     the main path's class-shifted, score-sorted candidates and on
-    candidates at the same shape that suppress (``suppressing_nms_input``:
-    every stream must keep some and drop some of its finite candidates),
-    both timed; bound (main path's input): boxes and flags read once, the
+    candidates at the same shape that suppress (``sup``: every stream must
+    keep some and drop some of its finite candidates), each with the main
+    path's cap (max_keep, batched_nms's max_out) and without one, all
+    timed; bound of the main path's call: boxes and flags read once, the
     keep set written once, and 12 float32 operations per IoU of a pair of
-    finite candidates on the CUDA cores."""
+    finite candidates up to the cap (``nms_work``; ``full_bound_ms``: all
+    pairs) on the CUDA cores.  Returns the row and a function that adds
+    the kernel's ``torch.profiler`` device times, to call after the timed
+    phases."""
     import torch
     from stereotracking_tpu_torch.ops import nms_cuda
-    boxes, finite, thr = nms_inputs
+    boxes, finite, thr, max_keep = nms_inputs
     n, k = finite.shape
-    sup = suppressing_nms_input(n, k, thr, score_thr, device)
+    require(max_keep is not None and sup[3] == max_keep,
+            f'nms: the main path passes max_keep {max_keep}, the '
+            f'suppressing input {sup[3]}')
     require(sup[1].shape == (n, k), f'nms: suppressing input of shape '
             f'{tuple(sup[1].shape)}, expected {(n, k)}')
-    r = dict(max_abs_err=0.0, library_ms=None)
-    kept, out = {}, {}
-    for what, (b, f, t) in (('main path', nms_inputs), ('suppressing', sup)):
-        out[what] = nms_cuda.nms_keep(b, f, t)
-        want = nms_cuda.nms_keep_plain(b, f, t)
-        require(torch.equal(out[what], want), f'nms ({what}): keep set '
-                f'differs from the plain fixed point')
-        kept[what] = f'{out[what].sum(1).tolist()} of {f.sum(1).tolist()}'
-        pre = '' if what == 'main path' else 'suppress_'
-        r[pre + 'ms'] = time_ms(lambda: nms_cuda.nms_keep(b, f, t), iters)
-        r[pre + 'plain_ms'] = time_ms(
-            lambda: nms_cuda.nms_keep_plain(b, f, t), iters)
-    n_kept, n_fin = out['suppressing'].sum(1), sup[1].sum(1)
+    r = dict(max_abs_err=0.0, library_ms=None, max_keep=max_keep)
+    kept, out, calls = {}, {}, {}
+    for what, (b, f, t, _) in (('main path', nms_inputs),
+                               ('suppressing', sup)):
+        for cap in (max_keep, None):
+            key = (what, cap)
+            out[key] = nms_cuda.nms_keep(b, f, t, cap)
+            want = nms_cuda.nms_keep_plain(b, f, t, cap)
+            require(torch.equal(out[key], want), f'nms ({what}, max_keep '
+                    f'{cap}): keep set differs from the plain fixed point')
+            kept[key] = out[key].sum(1).tolist()
+            calls[key] = (lambda b=b, f=f, t=t, cap=cap:
+                          nms_cuda.nms_keep(b, f, t, cap))
+            pre = ('' if what == 'main path' else 'suppress_') + (
+                '' if cap is not None else 'full_')
+            r[pre + 'ms'] = time_ms(calls[key], iters)
+            r[pre + 'plain_ms'] = time_ms(
+                lambda b=b, f=f, t=t, cap=cap:
+                nms_cuda.nms_keep_plain(b, f, t, cap), iters)
+    n_kept, n_fin = out[('suppressing', None)].sum(1), sup[1].sum(1)
     require(bool(((0 < n_kept) & (n_kept < n_fin)).all()),
-            f'nms (suppressing): kept {kept["suppressing"]} finite '
-            f'candidates per stream; every stream must keep some and drop '
-            f'some')
-    fin = finite.sum(1).double()
-    pairs = float((fin * (fin - 1) / 2).sum())
-    r['bound_ms'], r['bound_by'] = bound(
-        nbytes(boxes, finite, out['main path']), 12 * pairs, PEAK_F32)
-    print(f'kernel nms x{n}: {k} candidates per stream, IoU > {thr}; main '
-          f'path: kept {kept["main path"]}, kernel {r["ms"]:.4f} ms plain '
-          f'{r["plain_ms"]:.4f} ms; suppressing: kept '
-          f'{kept["suppressing"]}, kernel {r["suppress_ms"]:.4f} ms plain '
-          f'{r["suppress_plain_ms"]:.4f} ms; keep sets exact on both; '
-          f'library none (no PyTorch call computes greedy NMS); bound (main '
-          f'path) {r["bound_ms"]:.5f} ms ({r["bound_by"]}: '
-          f'{pairs / 1e6:.2f} M IoUs)', flush=True)
-    return r
+            f'nms (suppressing): kept {n_kept.tolist()} of '
+            f'{n_fin.tolist()} finite candidates per stream; every stream '
+            f'must keep some and drop some')
+    full = out[('main path', None)]
+    pairs = nms_work(full, finite, max_keep)
+    all_pairs = nms_work(full, finite, None)
+    moved = nbytes(boxes, finite, full)
+    r['bound_ms'], r['bound_by'] = bound(moved, 12 * pairs, PEAK_F32)
+    r['full_bound_ms'], _ = bound(moved, 12 * all_pairs, PEAK_F32)
+    print(f'kernel nms x{n}: {k} candidates per stream, IoU > {thr}, '
+          f'max_keep {max_keep} (the main path\'s) or none; main path: kept '
+          f'{kept[("main path", max_keep)]} / {kept[("main path", None)]} of '
+          f'{finite.sum(1).tolist()}, kernel {r["ms"]:.4f} / '
+          f'{r["full_ms"]:.4f} ms, plain {r["plain_ms"]:.4f} / '
+          f'{r["full_plain_ms"]:.4f} ms; suppressing: kept '
+          f'{kept[("suppressing", max_keep)]} / '
+          f'{kept[("suppressing", None)]}, kernel {r["suppress_ms"]:.4f} / '
+          f'{r["suppress_full_ms"]:.4f} ms, plain '
+          f'{r["suppress_plain_ms"]:.4f} / {r["suppress_full_plain_ms"]:.4f}'
+          f' ms; keep sets exact on all 4; library none (no PyTorch call '
+          f'computes greedy NMS); bound of the main path\'s call '
+          f'{r["bound_ms"]:.5f} ms ({r["bound_by"]}: {pairs / 1e6:.3f} M '
+          f'IoUs up to the cap), without the cap {r["full_bound_ms"]:.5f} '
+          f'ms ({all_pairs / 1e6:.2f} M IoUs)', flush=True)
+
+    def trace():
+        for key, name in ((('main path', max_keep), 'device_ms'),
+                          (('main path', None), 'full_device_ms'),
+                          (('suppressing', max_keep), 'suppress_device_ms'),
+                          (('suppressing', None),
+                           'suppress_full_device_ms')):
+            r[name] = device_ms(calls[key], 'nms_kernel', 10 * iters)
+        print(f'nms x{n}: kernel device time (torch.profiler), max_keep '
+              f'{max_keep} / none: main path {r["device_ms"]:.4f} / '
+              f'{r["full_device_ms"]:.4f} ms, suppressing '
+              f'{r["suppress_device_ms"]:.4f} / '
+              f'{r["suppress_full_device_ms"]:.4f} ms; '
+              f'{100 * r["bound_ms"] / r["device_ms"]:.2f}% of the main '
+              f'path call\'s bound', flush=True)
+
+    return r, trace
 
 
 def replay_cost(tcfg, device, n_streams, iters=20):
@@ -1206,7 +1309,8 @@ def run_multistream(model, device):
 def profile_steps(step, what):
     """Device time by kernel over two replayed steps (``step(t)`` runs step
     t), the kernel sum against the steps' wall time (the card's busy
-    share), and each hand-written kernel's launches in the trace."""
+    share), and each hand-written kernel's launches and device time per
+    step in the trace."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1232,6 +1336,10 @@ def profile_steps(step, what):
     seen = {n: sum(c for _, c, k in rows if n in k) for n in names}
     print(f'profile {what}: hand-written kernel launches in the trace of 2 '
           f'steps: {seen}', flush=True)
+    us = {n: round(sum(t for t, _, k in rows if n in k) / 2, 1)
+          for n in names}
+    print(f'profile {what}: hand-written kernels\' device time per step '
+          f'(us): {us}', flush=True)
 
 
 def run_bf16(model, device, f32):
@@ -1507,7 +1615,7 @@ def main():
     print(f'build: {path.name} in {time.perf_counter() - t0:.1f} s '
           f'(nvcc {_kernels.build_seconds})', flush=True)
     for name, lines in _kernels.ptxas_usage(
-            sorted({KERNELS[k][0] for k in PTXAS})).items():
+            sorted({KERNELS[k][0] for k in REDESIGNED})).items():
         for line in lines:
             print(f'ptxas {name}: {line}', flush=True)
 

@@ -59,8 +59,9 @@ _SIGNATURES = {
                       _P, _P, _P),
     # cost, need, n, k, c, row2col, stream
     'st_jv_assign': (_P, _P, _I, _I, _I, _P, _P),
-    # boxes, finite, n, k, thr, eps, mask scratch, tickets, keep, stream
-    'st_nms_keep': (_P, _P, _I, _I, _F, _F, _P, _P, _P, _P),
+    # boxes, finite, n, k, thr, eps, max_keep, mask scratch, tickets, keep,
+    # stream
+    'st_nms_keep': (_P, _P, _I, _I, _F, _F, _I, _P, _P, _P, _P),
 }
 
 

@@ -6,10 +6,11 @@ Replaces the JAX package's device JV, ``_solve_rect_lap`` with a scan mask
 ``linear_assignment_with_limit``, ``:209``): for each stream the K x C
 float32 problem, the rows of ``need`` assigned in ascending order by
 shortest augmenting paths.  ``jv_assign`` launches ``csrc/assignment.cu``
-(one block per stream, all streams in one launch) on CUDA tensors and runs
-``jv_assign_plain``, the numpy solver the JAX package's ids were matched
-against, on CPU tensors.  The two are bit-exact: the kernel keeps the
-plain version's float32 operation order and first-index argmin.
+(one warp per stream, all streams in one launch; the instance chosen by
+shape, ``jv_instance``) on CUDA tensors and runs ``jv_assign_plain``, the
+numpy solver the JAX package's ids were matched against, on CPU tensors.
+The two are bit-exact: the kernel keeps the plain version's float32
+operation order and first-index argmin.
 """
 from __future__ import annotations
 
@@ -21,6 +22,18 @@ import torch
 from .. import _kernels
 
 _INF = np.float32(1e18)     # Dijkstra sentinel
+MAX_COLUMNS = 1024
+STAGE_BYTES = 192 * 1024    # the largest cost matrix staged in shared memory
+
+
+def jv_instance(k: int, c: int) -> Tuple[int, bool]:
+    """(columns per lane, staged) of the kernel instance that ``jv_assign``
+    launches for a K x C problem: each lane of the stream's warp holds the
+    least of 4, 8, 16, 32 columns that covers C, and the cost matrix is
+    copied into shared memory when its K * C * 4 bytes fit in
+    ``STAGE_BYTES``, else its rows are read from global memory."""
+    cpl = next(n for n in (4, 8, 16, 32) if 32 * n >= c)
+    return cpl, k * c * 4 <= STAGE_BYTES
 
 
 def _assign_row(cost, u, v, col2row, row2col, i):
@@ -94,8 +107,9 @@ def jv_assign(cost: torch.Tensor, need: torch.Tensor) -> torch.Tensor:
     if need.shape != (n, k) or need.dtype != torch.bool:
         raise ValueError(f'need must be ({n}, {k}) bool, got '
                          f'{tuple(need.shape)} {need.dtype}')
-    if not k <= c <= 1024:
-        raise ValueError(f'jv_assign takes K <= C <= 1024, got K={k} C={c}')
+    if not k <= c <= MAX_COLUMNS:
+        raise ValueError(f'jv_assign takes K <= C <= {MAX_COLUMNS}, got '
+                         f'K={k} C={c}')
     if cost.device.type == 'cpu':
         return jv_assign_plain(cost, need)
     cost, need = cost.contiguous(), need.contiguous()

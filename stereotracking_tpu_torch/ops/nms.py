@@ -4,11 +4,11 @@ Port of ``stereotracking_tpu/ops/nms.py``: candidates in descending score
 order (a STABLE sort, so tied scores keep index order exactly as
 ``jax.lax.top_k`` does — ``torch.topk`` does not promise it), class offsets
 so one IoU pass serves all classes, and the greedy keep set
-(``nms_cuda.nms_keep``: a CUDA kernel for CUDA tensors, the dense
-fixed-point loop for CPU tensors), then the kept candidates compacted into
-``max_out`` slots.  Inputs may carry leading stream dims, (..., A): all
-streams are one pass, and on the card nothing reads a value back to the
-host.
+(``nms_cuda.nms_keep``, cut at ``max_out`` kept candidates: a CUDA kernel
+for CUDA tensors, the dense fixed-point loop for CPU tensors), then the
+kept candidates compacted into ``max_out`` slots.  Inputs may carry
+leading stream dims, (..., A): all streams are one pass, and on the card
+nothing reads a value back to the host.
 """
 from __future__ import annotations
 
@@ -50,7 +50,8 @@ def batched_nms(boxes: torch.Tensor, scores: torch.Tensor,
     span = torch.where(torch.isfinite(top_boxes), top_boxes, 0.0).amax(
         dim=(1, 2), keepdim=True) + 1.0
     offs = top_labels.to(torch.float32)[..., None] * span
-    keep = nms_keep(top_boxes + offs, finite, iou_threshold)
+    # only the first max_out kept candidates leave: the scan stops there
+    keep = nms_keep(top_boxes + offs, finite, iou_threshold, max_out)
 
     order = torch.sort((~keep).to(torch.int8), dim=1,
                        stable=True).indices[:, :max_out]

@@ -369,6 +369,102 @@ def test_nms_kernel_exact(dev, k):
     assert 0 < int(keep.sum()) < int(finite.sum())
 
 
+def _shifted_nms_case(dev, streams, k, seed=4):
+    """nms_case's candidates class-shifted as batched_nms shifts them, with
+    finite flags (scores > 0.2, candidate 7 or the last forced off)."""
+    from device_step_cases import nms_case
+    boxes, scores, labels = nms_case(seed=seed, streams=streams, n=k)
+    boxes = torch.from_numpy(boxes).to(dev)
+    span = torch.where(torch.isfinite(boxes), boxes, 0.0).amax(
+        dim=(1, 2), keepdim=True) + 1.0
+    shifted = boxes + torch.from_numpy(labels).to(dev).float()[..., None] \
+        * span
+    finite = torch.from_numpy(scores).to(dev) > 0.2
+    finite[:, min(7, k - 1)] = False
+    return shifted, finite
+
+
+@pytest.mark.parametrize('max_keep', [None, 300, 5])
+@pytest.mark.parametrize('streams', [1, 8])
+@pytest.mark.parametrize('k', [64, 65, 2048])
+def test_nms_kernel_word_scan(dev, k, streams, max_keep):
+    """The word-level scan with and without its cap against the plain fixed
+    point cut at the same cap, exactly; one launch."""
+    from stereotracking_tpu_torch.ops import nms_cuda
+    shifted, finite = _shifted_nms_case(dev, streams, k)
+    before = _kernels.launch_counts()['nms']
+    keep = nms_cuda.nms_keep(shifted, finite, 0.5, max_keep)
+    assert _kernels.launch_counts()['nms'] == before + 1
+    want = nms_cuda.nms_keep_plain(shifted, finite, 0.5, max_keep)
+    assert torch.equal(keep, want)
+    if max_keep is not None:
+        assert int(keep.sum(1).max()) <= max_keep
+
+
+@pytest.mark.parametrize('max_keep', [None, 70])
+@pytest.mark.parametrize('step,full', [(20.0, 2048), (0.0, 1), (2.0, 1024)])
+def test_nms_kernel_synthetic(dev, step, full, max_keep):
+    """2048 boxes in a row, 10 px wide, ``step`` px apart: disjoint (all
+    kept), equal (the first kept), and a chain whose neighbours overlap
+    past 0.5 and whose next but one do not (every other box kept, across
+    all 32 words)."""
+    from stereotracking_tpu_torch.ops import nms_cuda
+    k = 2048
+    x = torch.arange(k, dtype=torch.float32) * step
+    b = torch.stack([x, torch.zeros(k), x + 10, torch.full((k,), 10.0)], -1)
+    boxes = b[None].to(dev).contiguous()
+    finite = torch.ones((1, k), dtype=torch.bool, device=dev)
+    keep = nms_cuda.nms_keep(boxes, finite, 0.5, max_keep)
+    want = nms_cuda.nms_keep_plain(boxes, finite, 0.5, max_keep)
+    assert torch.equal(keep, want)
+    assert int(keep.sum()) == (full if max_keep is None
+                               else min(full, max_keep))
+
+
+def _jv_random(dev, streams, k, c, seed, zeros=False, nans=False):
+    """(S, K, C) costs on a grid of quarters (many equal values; with
+    ``zeros`` half the zeros -0.0; with ``nans`` ~1% NaN) and random rows
+    to assign."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    cost = (rng.randint(0, 5, (streams, k, c)) / 4.0).astype(np.float32)
+    if zeros:
+        cost = np.where(cost == 0, np.float32(0), cost)
+        cost[(cost == 0) & (rng.rand(*cost.shape) < 0.5)] = np.float32(-0.0)
+    if nans:
+        cost[rng.rand(*cost.shape) < 0.01] = np.nan
+    need = rng.rand(streams, k) < 0.7
+    return (torch.from_numpy(cost).to(dev), torch.from_numpy(need).to(dev))
+
+
+@pytest.mark.parametrize('k,c', [(64, 128), (64, 256), (51, 131), (32, 1024),
+                                 (64, 1024), (256, 1024)])
+def test_jv_kernel_instances(dev, k, c):
+    """Each template instance (columns per lane 4 / 8 / 32, the cost staged
+    in shared memory or read from global memory, C not a multiple of 4 and
+    an unaligned stream) against the numpy solver, exactly, at 3 streams."""
+    from stereotracking_tpu_torch.ops import assignment_cuda
+    cost, need = _jv_random(dev, 3, k, c, seed=k + c)
+    before = _kernels.launch_counts()['assignment']
+    got = assignment_cuda.jv_assign(cost, need)
+    assert _kernels.launch_counts()['assignment'] == before + 1
+    want = assignment_cuda.jv_assign_plain(cost.cpu(), need.cpu())
+    assert torch.equal(got.cpu(), want), assignment_cuda.jv_instance(k, c)
+
+
+@pytest.mark.parametrize('k,c', [(64, 128), (64, 1024)])
+@pytest.mark.parametrize('what', ['signed_zeros', 'nan'])
+def test_jv_kernel_zero_and_nan_ties(dev, what, k, c):
+    """Costs with +0.0 and -0.0 ties (equal for np.argmin), or with NaN
+    entries (ranked first), through the staged and the global instance."""
+    from stereotracking_tpu_torch.ops import assignment_cuda
+    cost, need = _jv_random(dev, 4, k, c, seed=7, zeros=what != 'nan',
+                            nans=what == 'nan')
+    got = assignment_cuda.jv_assign(cost, need)
+    want = assignment_cuda.jv_assign_plain(cost.cpu(), need.cpu())
+    assert torch.equal(got.cpu(), want)
+
+
 def _captured_world(dev):
     """A flagship-width model with every stage kernel on, head biases at 3
     (every anchor a candidate), and 6 steps of 8 streams of 96 x 160 raw
