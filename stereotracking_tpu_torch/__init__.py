@@ -7,7 +7,9 @@ dual-branch YOLOX detector -> NMS -> per-box depth -> OC-SORT — runs through
 through ``parallel.multistream.MultiStreamTracker``.  Every Pallas kernel
 of the JAX package has a hand-written CUDA C++ counterpart under ``csrc/``
 (built at first use by ``_kernels``), and beside each kernel a plain
-PyTorch version of the same function that CPU tensors run.
+PyTorch version of the same function that CPU tensors run.  The
+detector trains through ``train`` and ``tools.train`` on the float32
+modules, as the JAX package trains outside its Pallas kernels.
 
 This package never imports ``jax`` or ``flax``.
 """

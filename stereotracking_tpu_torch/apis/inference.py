@@ -2,10 +2,11 @@
 
 Port of ``stereotracking_tpu/apis/inference.py`` (the reference mmtrack
 ``init_model`` / ``inference_mot``): build a model from a config file or
-dict and an optional reference ``.pth`` checkpoint, then feed it frames one
-by one.  Every frame goes through ``OCSORTDisparity.track_raw``, the port's
-one raw-frame path for every backend mix; the result leaves the card in one
-synchronisation (``models.mot.result_to_host``).
+dict and an optional ``.pth`` checkpoint (a reference one, or this
+package's detector export), then feed it frames one by one.  Every frame
+goes through ``OCSORTDisparity.track_raw``, the port's one raw-frame path
+for every backend mix; the result leaves the card in one synchronisation
+(``models.mot.result_to_host``).
 """
 from __future__ import annotations
 
@@ -18,28 +19,30 @@ from ..config import load_config
 from ..data import transforms as T
 from ..models.detector import YOLOXDetector
 from ..models.mot import OCSORTDisparity, result_to_host
-from ..utils.checkpoint import load_torch_checkpoint, mot_state_dict
+from ..utils.checkpoint import detector_state_dict
 from .builder import build_mot_config, build_model
 
 
 def init_model(config, checkpoint: Optional[str] = None, device='cuda',
                dtype: Optional[torch.dtype] = None) -> OCSORTDisparity:
-    """Config path or dict (+ optional reference PyTorch checkpoint,
-    ``.pth`` / ``.pt``) -> model on ``device`` (the card unless the caller
-    asks for the CPU), computing in ``dtype`` (float32 unless given).
-    Without a checkpoint the detector gets seeded random weights."""
+    """Config path or dict (+ optional PyTorch checkpoint, ``.pth`` /
+    ``.pt``) -> model on ``device`` (the card unless the caller asks for
+    the CPU), computing in ``dtype`` (float32 unless given).  A checkpoint
+    is this package's detector export (the trainer's, loaded as it is) or
+    a reference checkpoint (the RGB stem and stage 1 copied into the
+    disparity branch: ``utils.checkpoint.detector_state_dict``).  Without
+    a checkpoint the detector gets seeded random weights."""
     cfg = load_config(config) if isinstance(config, str) else config
     module = None
     if checkpoint is not None:
         if not str(checkpoint).endswith(('.pth', '.pt')):
             raise NotImplementedError(
-                f'checkpoint {checkpoint!r}: only reference PyTorch '
-                f'checkpoints (.pth / .pt) load here; JAX-native (orbax / '
+                f'checkpoint {checkpoint!r}: only PyTorch checkpoints '
+                f'(.pth / .pt) load here; JAX-native (orbax / '
                 f'msgpack) checkpoints are not ported (ROADMAP.md Queue 1)')
         mot = build_mot_config(cfg['model'], device)
         module = YOLOXDetector(mot.detector, dtype=dtype or torch.float32)
-        module.load_state_dict(mot_state_dict(
-            load_torch_checkpoint(checkpoint), module))
+        module.load_state_dict(detector_state_dict(checkpoint, module))
     model = build_model(cfg, device=device, module=module, dtype=dtype)
     model.config_dict = cfg
     return model

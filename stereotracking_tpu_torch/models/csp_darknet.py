@@ -16,7 +16,8 @@ hands over to the modules, its bf16 NHWC output becomes an NCHW view in
 ``dtype``: float32 a converted copy, bfloat16 the kernel's own tensor
 (channels-last, as cuDNN's bf16 convolutions take it).  Every kernel takes
 the S frames of a batch in one launch.  A kernel wrapper given a CPU
-tensor runs its plain PyTorch version.
+tensor runs its plain PyTorch version.  In train mode (``.train()``) every
+stage must be ``'torch'``: the kernels have no backward.
 """
 from __future__ import annotations
 
@@ -135,6 +136,11 @@ class CSPDarknetDual(nn.Module):
         'disp_u16' (S, h, w).  Returns the (stage 2, 3, 4) NCHW features
         in the compute dtype."""
         backends.check()        # a kernel runs only after its predecessor's
+        if self.training and 'cuda' in backends:
+            raise ValueError(
+                f'train mode runs the float32 modules only: the kernels have '
+                f'no backward, and the JAX package does not train through '
+                f'its Pallas kernels; got {backends}')
         dt = self.dtype
         if backends.stem == 'cuda':
             kw = self.kernel_weights()

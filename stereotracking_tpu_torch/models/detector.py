@@ -32,7 +32,9 @@ class DetectorConfig(NamedTuple):
 class YOLOXDetector(nn.Module):
     """Dual-branch backbone -> PAFPN -> decoupled head (mm key names).
     Parameters are float32; the layers that run on the modules compute in
-    ``dtype`` (the JAX ``YOLOXDetector.dtype``)."""
+    ``dtype`` (the JAX ``YOLOXDetector.dtype``).  Built in eval mode;
+    ``.train()`` (the trainer's) normalises with batch statistics, float32
+    and the modules only (the JAX ``train=True``)."""
 
     def __init__(self, cfg: DetectorConfig = DetectorConfig(),
                  dtype: torch.dtype = torch.float32):
@@ -49,6 +51,7 @@ class YOLOXDetector(nn.Module):
         self.bbox_head = YOLOXHead(num_classes=cfg.num_classes,
                                    widen_factor=cfg.widen_factor,
                                    strides=cfg.strides, dtype=dtype)
+        self.eval()         # serving semantics unless a trainer asks
 
     def forward(self, inputs: dict,
                 backends: StageBackends = StageBackends()):

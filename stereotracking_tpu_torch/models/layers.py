@@ -6,11 +6,15 @@ Port of the canonical blocks of ``stereotracking_tpu/models/layers.py``:
 Module and parameter names follow the mmdet/mmyolo modules, so a reference
 ``.pth`` state dict loads with ``load_state_dict``.
 
-Inference only.  Every block takes a compute ``dtype``, float32 by
-default, as the Flax modules do: the parameters and BatchNorm statistics
-stay float32 and the compute runs in ``dtype``.  In float32, BatchNorm is
-folded into a per-channel (scale, bias) pair applied after the convolution,
-as the fused kernels apply it.  In another dtype (bfloat16) a ``ConvBNAct``
+Every block takes a compute ``dtype``, float32 by default, as the Flax
+modules do: the parameters and BatchNorm statistics stay float32 and the
+compute runs in ``dtype``.  A ``ConvBNAct`` is built in eval mode, and
+``.train()`` is the only way into train mode, which the trainer takes
+(``train/train_state.py``): there BatchNorm normalises with the batch
+statistics as Flax's ``nn.BatchNorm`` does (``batch_norm_train``), float32
+only.  In eval mode and float32, BatchNorm is folded into a per-channel
+(scale, bias) pair applied after the convolution, as the fused kernels
+apply it.  In another dtype (bfloat16) a ``ConvBNAct``
 rounds to ``dtype`` where Flax's ``ConvBNAct`` does (``conv_bn_act``): the
 convolution of the cast input and kernel, BatchNorm computed in float32
 from that output, and the SiLU, which torch rounds once where Flax rounds
@@ -28,6 +32,7 @@ from torch import nn
 
 BN_EPS = 0.001
 BN_MOMENTUM = 0.03      # torch convention (flax 0.97)
+BN_DECAY = 0.97         # flax convention: the running statistics' weight
 
 
 def widen(channels: int, widen_factor: float, divisor: int = 8) -> int:
@@ -72,6 +77,24 @@ def conv_bn_act(conv: nn.Conv2d, bn: nn.BatchNorm2d, x: torch.Tensor,
     return F.silu(y)
 
 
+def batch_norm_train(bn: nn.BatchNorm2d, y: torch.Tensor) -> torch.Tensor:
+    """Flax ``nn.BatchNorm(use_running_average=False)`` on an NCHW float32
+    ``y``: the mean over N, H and W, the variance as ``max(0, E[y^2] -
+    E[y]^2)`` (``use_fast_variance``), ``(y - mean) * (rsqrt(var + eps) *
+    scale) + bias`` with the gradient through both statistics; then the
+    running statistics become ``0.97 * old + 0.03 * batch``, with the
+    biased variance (torch's own BatchNorm keeps the unbiased one)."""
+    mean = y.mean((0, 2, 3))
+    var = torch.maximum((y * y).mean((0, 2, 3)) - mean * mean,
+                        mean.new_zeros(()))
+    with torch.no_grad():
+        for run, stat in ((bn.running_mean, mean), (bn.running_var, var)):
+            run.copy_(BN_DECAY * run + (1 - BN_DECAY) * stat)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    return (y - mean[:, None, None]) * mul[:, None, None] + \
+        bn.bias[:, None, None]
+
+
 def conv_bias(conv: nn.Conv2d, x: torch.Tensor,
               dtype: torch.dtype) -> torch.Tensor:
     """A plain biased conv in ``dtype``: as Flax's ``nn.Conv``, the bias is
@@ -85,7 +108,7 @@ def conv_bias(conv: nn.Conv2d, x: torch.Tensor,
 
 class ConvBNAct(nn.Module):
     """Conv2d (no bias) + BatchNorm + SiLU (mmcv ConvModule), computed in
-    ``dtype``."""
+    ``dtype``; built in eval mode."""
 
     def __init__(self, cin: int, cout: int, k: int = 1, stride: int = 1,
                  dtype: torch.dtype = torch.float32):
@@ -93,8 +116,14 @@ class ConvBNAct(nn.Module):
         self.conv = nn.Conv2d(cin, cout, k, stride, k // 2, bias=False)
         self.bn = nn.BatchNorm2d(cout, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.dtype = dtype
+        self.eval()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            if self.dtype != torch.float32:
+                raise ValueError(f'train mode computes in float32 only, not '
+                                 f'{self.dtype}')
+            return F.silu(batch_norm_train(self.bn, self.conv(x)))
         if self.dtype != torch.float32:
             return conv_bn_act(self.conv, self.bn, x, self.dtype)
         scale, bias = fold_bn(self.bn)

@@ -16,8 +16,11 @@ a re-layout.
   shape, raises: the JAX path fails there too, and random weights are
   never kept silently.  Keys the detector does not read are ignored.
 
-JAX-native checkpoints (orbax / msgpack) need flax to read and are not
-handled here.
+A checkpoint whose ``meta`` says ``format: DETECTOR_FORMAT`` is this
+package's own export (``train/checkpoint.extract_detector_variables``):
+``detector_state_dict`` loads it as it is, the disparity branch's own stem
+and stage 1 included, with the same checks.  JAX-native checkpoints
+(orbax / msgpack) need flax to read and are not handled here.
 """
 from __future__ import annotations
 
@@ -26,22 +29,32 @@ from typing import Dict
 import torch
 from torch import nn
 
+# ``meta['format']`` of a detector checkpoint that this package exported
+DETECTOR_FORMAT = 'stereotracking_tpu_torch.detector'
 _BRANCH_COPIES = (('backbone.disp_stem.', 'backbone.stem.'),
                   ('backbone.disp_stage1.', 'backbone.stage1.'))
 
 
-def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
-    """A ``.pth`` file's state dict (its tensors), on the CPU."""
-    ckpt = torch.load(path, map_location='cpu', weights_only=False)
-    sd = ckpt.get('state_dict', ckpt)
-    return {k: v for k, v in sd.items() if isinstance(v, torch.Tensor)}
-
-
-def mot_state_dict(src: Dict[str, torch.Tensor],
-                   module: nn.Module) -> Dict[str, torch.Tensor]:
+def detector_state_dict(path: str, module: nn.Module
+                        ) -> Dict[str, torch.Tensor]:
     """The state dict of ``module`` (a ``YOLOXDetector``) read from the
-    reference checkpoint ``src``; every tensor float32, BatchNorm's
-    ``num_batches_tracked`` zero."""
+    ``.pth`` at ``path``: this package's export as it is, anything else by
+    the reference route (``mot_state_dict``)."""
+    ckpt = torch.load(path, map_location='cpu', weights_only=False)
+    meta = ckpt.get('meta') if isinstance(ckpt, dict) else None
+    if isinstance(meta, dict) and meta.get('format') == DETECTOR_FORMAT:
+        return mot_state_dict(ckpt['state_dict'], module, branch_copy=False)
+    sd = ckpt.get('state_dict', ckpt)
+    return mot_state_dict(
+        {k: v for k, v in sd.items() if isinstance(v, torch.Tensor)}, module)
+
+
+def mot_state_dict(src: Dict[str, torch.Tensor], module: nn.Module,
+                   branch_copy: bool = True) -> Dict[str, torch.Tensor]:
+    """The state dict of ``module`` (a ``YOLOXDetector``) read from the
+    checkpoint ``src``; every tensor float32, BatchNorm's
+    ``num_batches_tracked`` zero.  ``branch_copy``: the disparity branch
+    read from the RGB keys (a reference checkpoint), else from its own."""
     src = {k[len('detector.'):] if k.startswith('detector.') else k: v
            for k, v in src.items()}
     out, missing, wrong = {}, [], []
@@ -50,7 +63,7 @@ def mot_state_dict(src: Dict[str, torch.Tensor],
             out[key] = torch.zeros_like(ref)
             continue
         name = key
-        for mine, theirs in _BRANCH_COPIES:
+        for mine, theirs in _BRANCH_COPIES if branch_copy else ():
             if key.startswith(mine):
                 name = theirs + key[len(mine):]
         val = src.get(name)

@@ -11,7 +11,9 @@ returns a ``state_dict`` for ``models.detector.YOLOXDetector``:
   mapping as ``stereotracking_tpu/utils/torch_convert.py:10-19``.
 
 Branch weights are carried as they are: the disparity branch keeps its own
-stem and stage 1.
+stem and stage 1.  ``train_state_to_torch`` carries a whole JAX
+``TrainState`` (weights, momentum trace, EMA and step) to the port's
+``TrainState.load_state_dict``.
 """
 from __future__ import annotations
 
@@ -82,3 +84,38 @@ def flax_to_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         sd[key[:-len('running_var')] + 'num_batches_tracked'] = \
             torch.zeros((), dtype=torch.int64)
     return sd
+
+
+def _momentum_trace(opt_state: Any) -> Any:
+    """The momentum trace inside an optax state (the ``trace`` field of
+    the ``TraceState`` of ``optax.sgd(momentum=...)``), found by walking
+    its (named) tuples, so that neither optax nor flax is imported."""
+    if 'trace' in getattr(opt_state, '_fields', ()):
+        return opt_state.trace
+    if isinstance(opt_state, (tuple, list)):
+        for sub in opt_state:
+            found = _momentum_trace(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def train_state_to_torch(state: Any) -> Dict[str, Any]:
+    """A JAX ``TrainState`` (``stereotracking_tpu/train/train_state.py``:
+    step, params, batch_stats, opt_state, ema_params, ema_batch_stats) ->
+    the port's ``TrainState.state_dict()``: the module and EMA state dicts
+    (``flax_to_state_dict``), the momentum trace of ``opt_state`` by
+    parameter name (it has the tree of ``params``, so the same mapping
+    applies) and ``step``."""
+    from ..train.train_state import TRAIN_FORMAT
+    trace = _momentum_trace(state.opt_state)
+    if trace is None:
+        raise ValueError('no momentum trace in the optimizer state')
+    return dict(
+        format=TRAIN_FORMAT, step=int(np.asarray(state.step)),
+        model=flax_to_state_dict({'params': state.params,
+                                  'batch_stats': state.batch_stats}),
+        ema=flax_to_state_dict({'params': state.ema_params,
+                                'batch_stats': state.ema_batch_stats}),
+        momentum=flax_to_state_dict({'params': trace,
+                                     'batch_stats': {}}))
