@@ -65,10 +65,12 @@ Phases, in order; any failure exits non-zero:
    truth: the rectangles ``make_frames`` draws), weights through
    ``init_model`` from a ``.pth`` written to a temporary directory;
    sequentially and with ``--streams 2 --stage-frames``, in float32 and with
-   ``--bf16``: the count metrics of the two loops must be equal; pairs/s;
-   no host sync per step besides the result fetch; then ``inference_mot``
-   over 2 frames must equal ``track_raw`` (ids exact, boxes within 1e-3
-   px);
+   ``--bf16``, as the CLI runs them (bf16 with cuDNN off, its
+   batch-invariant choice): the count metrics of the two loops must be
+   equal; pairs/s; no host sync per step besides the result fetch; as a
+   finding, the bf16 loops with cuDNN on (the CLI's choice overridden):
+   whether they differ, and their pairs/s; then ``inference_mot`` over 2
+   frames must equal ``track_raw`` (ids exact, boxes within 1e-3 px);
 9. train: the flagship detector (full width, float32, TF32 off) in train
    mode, ``train/train_state.train_step`` at batch 8 of 736x1280 on the two
    host-staged random batches of ``tools/bench_train.py`` (4-47 ground
@@ -96,20 +98,40 @@ Phases, in order; any failure exits non-zero:
    run;
 11. probe: the stage-1 kernel's six variants at 8 streams, each held to
    the plain version and timed (``tools/probe_stage1_variants.py``), the
-   production one beside the wmma 16x16 region it replaced.
+   production one beside the wmma 16x16 region it replaced;
+12. other configs, among the timed phases (their launches counted in
+   phase 10's traces): the KITTI stereo config (YOLOX-S, 2 classes) with
+   seeded weights on 375x1242 frames resized as the CLI does (386x1280,
+   padded to 416x1280): every kernel of its path held to its plain version
+   at 8 streams of this shape with phase 3's tolerances (stage 3
+   explicitly; depth, JV and NMS on the main path's own inputs, both labels
+   kept), one stream over 6 frames and 8 streams over 8 steps replayed
+   equal to eager with 0 host syncs (ms per frame, pairs/s), the eval
+   CLI's loop over 2 videos x 6 frames sequential and ``--streams 2`` in
+   float32 (count metrics equal); the monocular config (single backbone,
+   every stage on the modules; an explicit ``stem_backend='cuda'`` must
+   raise) over 6 frames of 1080x1920 resized to 720x1280, replayed equal to
+   eager, 0 host syncs, launches stem 0, stages 0, depth 1 (the config
+   keeps ``reuse_det_depth``'s default, True), assignment 3, nms 1 per
+   step; the flagship config with the V0 concatenated backbone over 2
+   frames, the same with depth 2; 3 train steps of the single backbone at batch
+   8 x 736x1280 (finite losses, ms per step).
 
 ``--profile`` adds, after the timed phases, a ``torch.profiler`` window
 over two replayed steps of one stream in float32 and of 8 streams in
-float32 and in bf16, and prints the device time by kernel, the card's busy
+float32 and in bf16 (and of each phase-12 tracker: KITTI at one and 8
+streams, monocular, concat), and prints the device time by kernel, the card's busy
 share and each hand-written kernel's launches and device time per step in
 the trace; and a window of two train steps of phase 9, its device time
 split into forward, loss (with SimOTA), backward, and optimizer plus EMA.
 
 Output: the per-phase lines, then the card line and one JSON line of kernel
 results (8-stream shapes; launches from the trace of phase 6's replayed
-steps, the probe's from the probe run), then, as the last line, ``{"ok":
-true, "device": {...}}``.
+steps, the probe's from the probe run; ``kitti_416x1280``: the same
+kernel's error, times and bound at 8 streams of the KITTI shape), then, as
+the last line, ``{"ok": true, "device": {...}}``.
 """
+import contextlib
 import json
 import math
 import os
@@ -358,11 +380,11 @@ def weight_reads(n, name, regions, before, after):
 
 def check_kernels(model, frames, next_frames, device, iters=10):
     """Phase 3 at S = len(frames) streams: each kernel against its plain
-    version, all timed, the assignment and NMS kernels on the inputs the
-    main path gives them at its second step (``frames``, then
-    ``next_frames``); returns {name: result row} and a function that adds
-    the depth, JV and NMS kernels' torch.profiler device times, to call
-    after the timed phases."""
+    version, all timed, the depth, assignment and NMS kernels on the
+    inputs the main path gives them at its second step (``frames``, then
+    ``next_frames``; ``check_path_kernels``).  Returns {name: result row}
+    and a function that adds the JV and NMS kernels' torch.profiler device
+    times, to call after the timed phases."""
     import torch
     import torch.nn.functional as F
     from stereotracking_tpu_torch.models.preprocessor import padded_shape
@@ -480,19 +502,37 @@ def check_kernels(model, frames, next_frames, device, iters=10):
           f'modules (model.backbone.stage3, TF32 off) {mod_ms:.4f} ms',
           flush=True)
 
-    res['depth'], depth_trace = check_depth(model.cfg, img, disp_u16, oh, ow,
-                                            device, iters)
+    path, trace = check_path_kernels(model, frames, next_frames, device,
+                                     iters)
+    res.update(path)
+    return res, trace
+
+
+def check_path_kernels(model, frames, next_frames, device, iters=10):
+    """The depth, JV and NMS kernels against their plain versions, timed,
+    on the inputs that ``model``'s own path hands them at its second step
+    (``frames``, then ``next_frames``: ``nms_jv_inputs``), with phase 3's
+    tolerances.  Returns their rows and a function that adds the JV and
+    NMS kernels' torch.profiler device times."""
     ins = nms_jv_inputs(model, frames, next_frames, device)
+    res = dict(depth=check_depth_main(ins['depth'], iters))
     res['assignment'], jv_trace = check_assignment(ins['jv'],
                                                    ins['conflicted'], iters)
     res['nms'], nms_trace = check_nms(ins['nms'], ins['suppressing'], iters)
 
     def trace():
-        depth_trace()
         jv_trace()
         nms_trace()
 
     return res, trace
+
+
+def json_rows(res):
+    """A config's kernel rows as the JSON line nests them under its
+    kernels' own rows: the contract's measured keys."""
+    return {k: {f: v[f] for f in ('max_abs_err', 'ms', 'plain_ms',
+                                  'bound_ms', 'bound_by')}
+            for k, v in res.items()}
 
 
 def depth_inputs(img, disp_u16, oh, ow, device):
@@ -526,6 +566,75 @@ def window_depths(stats, boxes, valid, h, w, bf):
     return torch.stack(cols, 1)
 
 
+def depth_agree(disp, boxes, valid, crop, bf):
+    """The depth kernel and its plain composite on the same inputs, held
+    together: integer statistics exact; float sums within rtol 1e-5
+    (float32 reassociation over up to 9,216 terms); depths and scales within
+    rtol 2e-6, atol 1e-5, as tests/test_depth_pallas.py holds the Pallas
+    kernel.  Returns both sides' (depth, scale, stats)."""
+    import torch
+    from stereotracking_tpu_torch.ops import depth_cuda as dc
+    kd, ksc, ks = dc.box_depths(disp, boxes, valid, crop, bf)
+    pd, psc, ps = dc.box_depths_plain(disp, boxes, valid, crop, bf)
+    torch.cuda.synchronize()
+    require(torch.equal(ks[:, :16], ps[:, :16]),
+            'depth: integer statistics differ')
+    require(torch.allclose(ks[:, 16:], ps[:, 16:], rtol=1e-5, atol=1e-3),
+            'depth: sums beyond rtol 1e-5')
+    require(torch.equal(kd == -1, pd == -1), 'depth: invalid pattern')
+    require(torch.allclose(kd, pd, rtol=2e-6, atol=1e-5)
+            and torch.allclose(ksc, psc, rtol=2e-6, atol=1e-5),
+            'depth: depths beyond rtol 2e-6')
+    return kd, ksc, ks, pd, psc, ps
+
+
+def depth_bound(disp, boxes, stats, crop, depth, scale):
+    """The depth kernel's (bound ms, 'bytes' or 'operations', bytes, ops)
+    on these inputs: each window pixel read once, the 16 corner pixels,
+    boxes and flags in, depth, scale and stats rows out; per window pixel
+    one exact pass of 7 rank compares and 12 count/sum adds on the CUDA
+    cores (their float32 rate)."""
+    from stereotracking_tpu_torch.ops import depth_cuda as dc
+    # the windows do not depend on rmin
+    scal = dc.box_scalars(boxes, crop, 0, *disp.shape[1:])
+    _, inside = dc.box_windows(disp, scal, crop)
+    px = int(inside.sum())
+    moved = 4 * px + scal.shape[0] * (16 * 4 + 16 + 1) + nbytes(
+        depth, scale, stats)
+    ops = 19 * px
+    return (*bound(moved, ops, PEAK_F32), moved, ops)
+
+
+def check_depth_main(depth_inputs, iters):
+    """The depth kernel against its plain composite on the main path's own
+    inputs of one step (its 2 extractions: the detections, the un-inflated
+    tracks), as ``depth_agree`` holds them; the first extraction timed."""
+    from stereotracking_tpu_torch.ops import depth_cuda as dc
+    err = 0.0
+    for disp, boxes, valid, crop, bf in depth_inputs:
+        kd, ksc, ks, pd, _, _ = depth_agree(disp, boxes, valid, crop, bf)
+        err = max(err, float((kd - pd).abs().max()))
+    disp, boxes, valid, crop, bf = depth_inputs[0]
+    n_ok = int((kd > 0).sum())
+    r = dict(max_abs_err=err,
+             ms=time_ms(lambda: dc.box_depths(disp, boxes, valid, crop, bf),
+                        10 * iters),
+             plain_ms=time_ms(lambda: dc.box_depths_plain(
+                 disp, boxes, valid, crop, bf), iters),
+             library_ms=None)
+    kd, ksc, ks = dc.box_depths(disp, boxes, valid, crop, bf)
+    r['bound_ms'], r['bound_by'], moved, ops = depth_bound(
+        disp, boxes, ks, crop, kd, ksc)
+    print(f'kernel depth x{disp.shape[0]} (main path, {disp.shape[1]}x'
+          f'{disp.shape[2]} maps, {len(depth_inputs)} extractions, '
+          f'{tuple(boxes.shape[:2])} boxes): max_abs_err {err:.6g}, integer '
+          f'statistics exact, {n_ok} boxes of the last with a depth; kernel '
+          f'{r["ms"]:.4f} ms  plain {r["plain_ms"]:.4f} ms  library none  '
+          f'bound {r["bound_ms"]:.5f} ms ({r["bound_by"]}: '
+          f'{moved / 1e6:.3f} MB, {ops / 1e9:.4f} G ops)', flush=True)
+    return r
+
+
 def check_depth(cfg, img, disp_u16, oh, ow, device, iters):
     """The depth kernel against its plain composite (box scalars, stats,
     corner vote) on boxes at every pyramid level, with n = 0, 1 and 2, an
@@ -545,20 +654,7 @@ def check_depth(cfg, img, disp_u16, oh, ow, device, iters):
     scal = dc.box_scalars(boxes, crop, dc.depth_rmin(bf), oh, ow)
     levels = set(scal[:, 0].tolist())
     require(levels == {0, 1, 2, 3}, f'depth boxes hit levels {levels}')
-    kd, ksc, ks = dc.box_depths(disp, boxes, valid, crop, bf)
-    pd, psc, ps = dc.box_depths_plain(disp, boxes, valid, crop, bf)
-    torch.cuda.synchronize()
-    # integer statistics exact; float sums within rtol 1e-5 (float32
-    # reassociation over up to 9,216 terms); depths and scales within rtol
-    # 2e-6, atol 1e-5, as tests/test_depth_pallas.py holds the Pallas kernel
-    require(torch.equal(ks[:, :16], ps[:, :16]),
-            'depth: integer statistics differ')
-    require(torch.allclose(ks[:, 16:], ps[:, 16:], rtol=1e-5, atol=1e-3),
-            'depth: sums beyond rtol 1e-5')
-    require(torch.equal(kd == -1, pd == -1), 'depth: invalid pattern')
-    require(torch.allclose(kd, pd, rtol=2e-6, atol=1e-5)
-            and torch.allclose(ksc, psc, rtol=2e-6, atol=1e-5),
-            'depth: depths beyond rtol 2e-6')
+    kd, ksc, ks, pd, psc, ps = depth_agree(disp, boxes, valid, crop, bf)
     # the kernel's vote branch: its depth is the candidate of the plain
     # version's branch, wherever the three candidates tell them apart
     flat = boxes.reshape(-1, 4)
@@ -577,15 +673,7 @@ def check_depth(cfg, img, disp_u16, oh, ow, device, iters):
     n_ok = int((kd > 0).sum())
     require(n_ok > 0, 'depth: no box got a depth')
 
-    # what these boxes need: each window pixel read once, the 16 corner
-    # pixels, boxes and flags in, depth, scale and stats rows out; per
-    # window pixel one exact pass of 7 rank compares and 12 count/sum adds
-    # on the CUDA cores (their float32 rate)
-    _, inside = dc.box_windows(disp, scal, crop)
-    px = int(inside.sum())
     nb = flat.shape[0]
-    moved = 4 * px + nb * (16 * 4 + 16 + 1) + nbytes(kd, ksc, ks)
-    ops = 19 * px
 
     def kernel():
         dc.box_depths(disp, boxes, valid, crop, bf)
@@ -606,7 +694,8 @@ def check_depth(cfg, img, disp_u16, oh, ow, device, iters):
              plain_ms=time_ms(lambda: dc.box_depths_plain(
                  disp, boxes, valid, crop, bf), iters),
              library_ms=None)
-    r['bound_ms'], r['bound_by'] = bound(moved, ops, PEAK_F32)
+    r['bound_ms'], r['bound_by'], moved, ops = depth_bound(
+        disp, boxes, ks, crop, kd, ksc)
     r['bound_share'] = r['bound_ms'] / r['ms']
     r['tops'] = ops / r['ms'] * 1e-9
     # one whole extraction as the step runs it, and the eager parts,
@@ -650,24 +739,29 @@ def check_depth(cfg, img, disp_u16, oh, ow, device, iters):
 
 
 def step_inputs(model, frames, device):
-    """The inputs that the main path hands the assignment and NMS kernels:
-    two eager steps of ``predict_frames_batched`` over ``frames`` (a list
-    of steps, each a list of S (img, disp)), the stage-3 kernel on, with
-    the wrappers' arguments of the second step recorded: [(ext, need)] for
-    the 3 assignments and (boxes, finite, thr, max_keep) for the NMS."""
+    """The inputs that the main path hands the assignment, NMS and depth
+    kernels: two eager steps of ``predict_frames_batched`` over ``frames``
+    (a list of steps, each a list of S (img, disp)), the model's config
+    (every stage kernel on where the backbone has them: the dual), with
+    the wrappers' arguments of the second step recorded: [(ext, need)] for the 3 assignments, (boxes, finite,
+    thr, max_keep) for the NMS and [(disp, boxes, valid, crop, bf)] for the
+    2 depth extractions."""
     import torch
-    from stereotracking_tpu_torch.apis.builder import build_mot_config
+    from stereotracking_tpu_torch.models.csp_darknet import StageBackends
     from stereotracking_tpu_torch.models.mot import (predict_frames_batched,
                                                      preprocess_raw)
     from stereotracking_tpu_torch.models.preprocessor import padded_shape
-    from stereotracking_tpu_torch.ops import assignment, nms
+    from stereotracking_tpu_torch.ops import assignment, depth, nms
     from stereotracking_tpu_torch.parallel.multistream import \
         init_stream_states
-    mot = build_mot_config(flagship_cfg('cuda')['model'], device)
+    mot = model.cfg
+    if mot.detector.backbone == 'dual':
+        mot = mot._replace(backends=StageBackends(*ALL_KERNELS))
     n = len(frames[0])
     states = init_stream_states(mot, n, device)
-    seen = dict(jv=[], nms=[])
-    jv, keep = assignment.jv_assign, nms.nms_keep
+    seen = dict(jv=[], nms=[], depth=[])
+    jv, keep, box_depths = assignment.jv_assign, nms.nms_keep, \
+        depth.box_depths
 
     def jv_rec(ext, need):
         seen['jv'].append((ext.clone(), need.clone()))
@@ -677,19 +771,26 @@ def step_inputs(model, frames, device):
         seen['nms'].append((boxes.clone(), finite.clone(), thr, max_keep))
         return keep(boxes, finite, thr, max_keep)
 
-    assignment.jv_assign, nms.nms_keep = jv_rec, nms_rec
+    def depth_rec(disp, boxes, valid, crop, bf):
+        seen['depth'].append((disp.clone(), boxes.clone(), valid.clone(),
+                              crop, bf))
+        return box_depths(disp, boxes, valid, crop, bf)
+
+    assignment.jv_assign, nms.nms_keep, depth.box_depths = \
+        jv_rec, nms_rec, depth_rec
     try:
         for t, step in enumerate(frames):
-            seen['jv'].clear()
-            seen['nms'].clear()
+            for calls in seen.values():
+                calls.clear()
             img, disp = to_card(step, device)
             inputs = preprocess_raw(img, disp, *padded_shape(*img.shape[1:3]))
             states, _ = predict_frames_batched(model.module, states, inputs,
                                                [t] * n, mot)
     finally:
-        assignment.jv_assign, nms.nms_keep = jv, keep
+        assignment.jv_assign, nms.nms_keep, depth.box_depths = \
+            jv, keep, box_depths
     torch.cuda.synchronize()
-    return seen['jv'], seen['nms'][0]
+    return seen['jv'], seen['nms'][0], seen['depth']
 
 
 def conflicted_jv_input(n, k, c, device):
@@ -709,15 +810,16 @@ def conflicted_jv_input(n, k, c, device):
 def nms_jv_inputs(model, frames, next_frames, device):
     """The JV and NMS kernels' inputs of phase 3 (and of
     ``tools/time_nms_jv.py``): the main path's at its second step
-    (``step_inputs``), the all-conflicted JV problem and the suppressing
-    NMS candidates at the same shapes."""
-    jv_in, nms_in = step_inputs(model, [frames, next_frames], device)
+    (``step_inputs``; its depth inputs too), the all-conflicted JV problem
+    and the suppressing NMS candidates at the same shapes."""
+    jv_in, nms_in, depth_in = step_inputs(model, [frames, next_frames],
+                                          device)
     n, k, c = jv_in[0][0].shape
     boxes, finite, thr, max_keep = nms_in
     return dict(jv=jv_in, conflicted=conflicted_jv_input(n, k, c, device),
                 nms=nms_in, suppressing=suppressing_nms_input(
                     *finite.shape, thr, model.cfg.detector.score_thr,
-                    max_keep, device))
+                    max_keep, device), depth=depth_in)
 
 
 def check_assignment(jv_inputs, conflicted, iters):
@@ -1132,53 +1234,71 @@ def median(xs):
     return xs[len(xs) // 2]
 
 
+def replayed_run(tracker, steps, n_streams, what, want):
+    """``tracker``'s step over ``steps`` ((img, disp) on the card with a
+    leading stream axis; ``n_streams`` 0 for a one-stream tracker): the
+    graph captured by a first call (state then reset), every step replayed
+    and timed (no wrapper launch), outputs finite, 0 host syncs in a
+    replayed step, replayed equal to the eager step (ids and validity
+    exact, boxes within 1e-2 px).  Returns per_step and results (the
+    replays'), ms and eager_ms (medians of the steps after the first two),
+    capture_ms, syncs, err (the largest box difference from eager) and the
+    trace job that counts the launches, ``want`` per step."""
+    import torch
+    from stereotracking_tpu_torch import _kernels
+    ids = [[t] * n_streams if n_streams else t for t in range(len(steps))]
+    frames = steps if n_streams else [(i[0], d[0]) for i, d in steps]
+    capture_ms = prime(tracker, *frames[0], n_streams)
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    per_step, results = [], []
+    for frame, i in zip(frames, ids):
+        t0 = time.perf_counter()
+        results.append(tracker.track_raw(*frame, i))
+        torch.cuda.synchronize()
+        per_step.append((time.perf_counter() - t0) * 1e3)
+    require_replayed(what)
+    lead = (n_streams,) if n_streams else ()
+    for t, r in enumerate(results):
+        check_result(r, lead, tracker.cfg.tracker.num_dets, f'{what} {t}')
+    n = len(steps)
+    syncs = count_syncs(lambda: tracker.track_raw(
+        *frames[0], [n] * n_streams if n_streams else n))
+    require(syncs == 0, f'{what}: {syncs} host syncs in a replayed step')
+    eager, eager_ms = eager_steps(tracker.module, tracker.cfg, steps,
+                                  steps[0][0].device)
+    err = same_results(results if n_streams else [
+        r._replace(**{k: v[None] for k, v in r._asdict().items()})
+        for r in results], eager, what)
+    return dict(per_step=per_step, results=results,
+                ms=median(per_step[2:] or per_step),
+                eager_ms=median(eager_ms[2:] or eager_ms),
+                capture_ms=capture_ms, syncs=syncs, err=err,
+                job=trace_job(tracker, frames, ids, want, results, what))
+
+
 def run_slice(model, frames, device):
     """Phase 5: the single-stream flagship slice, graph-replayed, counters
     checked, against the eager step."""
-    import torch
-    from stereotracking_tpu_torch import _kernels
     dev_frames = [to_card([f], device) for f in frames]
-    capture_ms = prime(model, dev_frames[0][0][0], dev_frames[0][1][0], 0)
-    torch.cuda.synchronize()
-    _kernels.reset_launch_counts()
-    per_frame, results = [], []
-    for f, (img, disp) in enumerate(dev_frames):
-        t0 = time.perf_counter()
-        r = model.track_raw(img[0], disp[0], f)
-        torch.cuda.synchronize()
-        per_frame.append((time.perf_counter() - t0) * 1e3)
-        results.append(r)
-    require_replayed('slice')
+    r = replayed_run(model, dev_frames, 0, 'slice', dict(PER_STEP, stage3=0))
     n_ids = set()
-    for f, (r, ms) in enumerate(zip(results, per_frame)):
-        check_result(r, (), model.cfg.tracker.num_dets, f'frame {f}')
-        ids = r.track_ids[r.track_valid].tolist()
+    for f, (res, ms) in enumerate(zip(r['results'], r['per_step'])):
+        ids = res.track_ids[res.track_valid].tolist()
         n_ids.update(i for i in ids if i >= 0)
-        print(f'frame {f}: {int(r.det_valid.sum())} valid detections, '
-              f'{int(r.track_valid.sum())} valid tracks, {ms:.2f} ms',
+        print(f'frame {f}: {int(res.det_valid.sum())} valid detections, '
+              f'{int(res.track_valid.sum())} valid tracks, {ms:.2f} ms',
               flush=True)
     require(len(n_ids) > 0, 'no track id assigned')
-    syncs = count_syncs(lambda: model.track_raw(*(x[0] for x in
-                                                  dev_frames[0]),
-                                                len(frames)))
-    require(syncs == 0, f'slice: {syncs} host syncs in a replayed frame')
-    eager, eager_ms = eager_steps(model.module, model.cfg, dev_frames,
-                                  device)
-    err = same_results([r._replace(**{k: v[None] for k, v in
-                                      r._asdict().items()})
-                        for r in results], eager, 'slice')
-    out = dict(ms=median(per_frame[2:]), eager_ms=median(eager_ms[2:]),
-               capture_ms=capture_ms)
+    per_frame = r['per_step']
     print(f'slice: {len(frames)} frames of {FRAME_H}x{FRAME_W}, '
           f'{len(n_ids)} track ids; graph capture (warm-up step included) '
-          f'{capture_ms:.2f} ms; replayed ms/frame first two '
+          f'{r["capture_ms"]:.2f} ms; replayed ms/frame first two '
           f'{per_frame[0]:.2f} {per_frame[1]:.2f}, frames 2-{len(frames) - 1}'
-          f' median {out["ms"]:.2f}; eager median {out["eager_ms"]:.2f} '
-          f'(this run); host syncs per frame {syncs}; replayed == eager (ids '
-          f'exact, boxes within {err:.3g} px)', flush=True)
-    return out, trace_job(model, [(img[0], disp[0]) for img, disp in
-                                  dev_frames], list(range(len(frames))),
-                          dict(PER_STEP, stage3=0), results, 'slice')
+          f' median {r["ms"]:.2f}; eager median {r["eager_ms"]:.2f} '
+          f'(this run); host syncs per frame {r["syncs"]}; replayed == eager '
+          f'(ids exact, boxes within {r["err"]:.3g} px)', flush=True)
+    return r['job']
 
 
 def run_mixed(model, frames, device):
@@ -1238,27 +1358,6 @@ def run_mixed(model, frames, device):
     return jobs
 
 
-def run_steps(ms, steps, what):
-    """The timed steps of a primed MultiStreamTracker, each a replay:
-    (results, ms per step)."""
-    import torch
-    from stereotracking_tpu_torch import _kernels
-    torch.cuda.synchronize()
-    _kernels.reset_launch_counts()
-    per_step, results = [], []
-    for t, (imgs, disps) in enumerate(steps):
-        t0 = time.perf_counter()
-        r = ms.track_raw(imgs, disps, [t] * N_STREAMS)
-        torch.cuda.synchronize()
-        per_step.append((time.perf_counter() - t0) * 1e3)
-        results.append(r)
-    require_replayed(what)
-    for t, r in enumerate(results):
-        check_result(r, (N_STREAMS,), ms.cfg.tracker.num_dets,
-                     f'{what} step {t}')
-    return results, per_step
-
-
 def run_multistream(model, device):
     """Phase 6: MultiStreamTracker, 8 streams x 8 steps, stage-3 kernel on,
     graph-replayed; against the eager step and single-stream runs."""
@@ -1277,8 +1376,8 @@ def run_multistream(model, device):
                for s in range(N_STREAMS)]
     steps = [to_card([streams[s][t] for s in range(N_STREAMS)], device)
              for t in range(N_STEPS)]
-    capture_ms = prime(ms, *steps[0], N_STREAMS)
-    results, per_step = run_steps(ms, steps, 'multi-stream')
+    run = replayed_run(ms, steps, N_STREAMS, 'multi-stream', PER_STEP)
+    results, per_step = run['results'], run['per_step']
     n_ids = set()
     for t, r in enumerate(results):
         n_ids.update(r.track_ids[r.track_valid].tolist())
@@ -1286,20 +1385,17 @@ def run_multistream(model, device):
               f'{int(r.track_valid.sum())} valid tracks over {N_STREAMS} '
               f'streams, {per_step[t]:.2f} ms', flush=True)
     require(len(n_ids - {-1}) > 0, 'multi-stream: no track id assigned')
-    syncs = count_syncs(lambda: ms.track_raw(*steps[0], [N_STEPS] * N_STREAMS))
-    require(syncs == 0, f'multi-stream: {syncs} host syncs in a replayed '
-            f'step')
-    eager, eager_ms = eager_steps(model.module, mot, steps, device)
-    err = same_results(results, eager, 'multi-stream')
-    med, emed = median(per_step[2:]), median(eager_ms[2:])
+    med, emed = run['ms'], run['eager_ms']
     print(f'multi-stream: {N_STREAMS} streams x {N_STEPS} steps of '
           f'{FRAME_H}x{FRAME_W}; graph capture (warm-up '
-          f'step included) {capture_ms:.2f} ms; replayed ms/step first two '
-          f'{per_step[0]:.2f} {per_step[1]:.2f}, steps 2-{N_STEPS - 1} median '
-          f'{med:.2f} ({N_STREAMS / med * 1e3:.1f} stereo pairs/s); eager '
-          f'median {emed:.2f} ({N_STREAMS / emed * 1e3:.1f} pairs/s, this '
-          f'run); host syncs per step {syncs}; replayed == eager (ids exact, '
-          f'boxes within {err:.3g} px)', flush=True)
+          f'step included) {run["capture_ms"]:.2f} ms; replayed ms/step '
+          f'first two {per_step[0]:.2f} {per_step[1]:.2f}, steps '
+          f'2-{N_STEPS - 1} median {med:.2f} ({N_STREAMS / med * 1e3:.1f} '
+          f'stereo pairs/s); eager median {emed:.2f} '
+          f'({N_STREAMS / emed * 1e3:.1f} pairs/s, this run); host syncs per '
+          f'step {run["syncs"]}; replayed == eager (ids exact, boxes within '
+          f'{run["err"]:.3g} px)',
+          flush=True)
 
     one = OCSORTDisparity(mot, module=model.module, device=device)
     for t in range(N_PARITY):
@@ -1319,13 +1415,9 @@ def run_multistream(model, device):
           f'{N_PARITY} steps (ids and validity exact, boxes within 1e-2 px)',
           flush=True)
     del one
-    return dict(ms_per_step=med, pairs_per_s=N_STREAMS / med * 1e3,
-                eager_ms_per_step=emed, capture_ms=capture_ms,
-                syncs_per_step=syncs, results=results[:N_PARITY],
-                steps=steps, mot=mot, tracker=ms,
-                job=trace_job(ms, steps, [[t] * N_STREAMS
-                                          for t in range(N_STEPS)],
-                              PER_STEP, results, 'multi-stream'))
+    return dict(ms_per_step=med, eager_ms_per_step=emed,
+                results=results[:N_PARITY], steps=steps, mot=mot,
+                tracker=ms, job=run['job'])
 
 
 def profile_steps(step, what):
@@ -1385,23 +1477,19 @@ def run_bf16(model, device, f32):
     ms = MultiStreamTracker(mot, N_STREAMS, module=det, device=device,
                             dtype=bf16)
     steps = f32['steps']
-    capture_ms = prime(ms, *steps[0], N_STREAMS)
-    results, per_step = run_steps(ms, steps, 'bf16')
-    syncs = count_syncs(lambda: ms.track_raw(*steps[0], [N_STEPS] * N_STREAMS))
-    require(syncs == 0, f'bf16: {syncs} host syncs in a replayed step')
-    eager, eager_ms = eager_steps(ms.module, mot, steps, device)
-    err = same_results(results, eager, 'bf16')
-    med, emed = median(per_step[2:]), median(eager_ms[2:])
+    run = replayed_run(ms, steps, N_STREAMS, 'bf16', PER_STEP)
+    results, per_step = run['results'], run['per_step']
+    med, emed = run['ms'], run['eager_ms']
     print(f'bf16: {N_STREAMS} streams x {N_STEPS} steps of {FRAME_H}x'
-          f'{FRAME_W}; graph capture {capture_ms:.2f} ms; '
+          f'{FRAME_W}; graph capture {run["capture_ms"]:.2f} ms; '
           f'replayed ms/step first two {per_step[0]:.2f} {per_step[1]:.2f}, '
           f'steps 2-{N_STEPS - 1} median {med:.2f} ({N_STREAMS / med * 1e3:.1f}'
           f' stereo pairs/s); eager median {emed:.2f} '
           f'({N_STREAMS / emed * 1e3:.1f} pairs/s); float32 replayed (phase '
           f'6, this run) {f32["ms_per_step"]:.2f} ms/step, eager '
-          f'{f32["eager_ms_per_step"]:.2f}; host syncs per step {syncs}; '
-          f'replayed == eager (ids exact, boxes within {err:.3g} px)',
-          flush=True)
+          f'{f32["eager_ms_per_step"]:.2f}; host syncs per step '
+          f'{run["syncs"]}; replayed == eager (ids exact, boxes within '
+          f'{run["err"]:.3g} px)', flush=True)
 
     img, disp = steps[0][0][:1], steps[0][1][:1]
     inputs = preprocess_raw(img, disp, *padded_shape(*img.shape[1:3]))
@@ -1424,11 +1512,7 @@ def run_bf16(model, device, f32):
     print(f'bf16 finding: stream 0 over {len(f32["results"])} steps: '
           f'{differ} of {total} track slots differ in id or validity from '
           f'the float32 run', flush=True)
-    return dict(ms_per_step=med, pairs_per_s=N_STREAMS / med * 1e3,
-                eager_ms_per_step=emed, syncs_per_step=syncs, tracker=ms,
-                job=trace_job(ms, steps, [[t] * N_STREAMS
-                                          for t in range(N_STEPS)],
-                              PER_STEP, results, 'bf16'))
+    return dict(tracker=ms, job=run['job'])
 
 
 class MemoryDataset:
@@ -1440,6 +1524,7 @@ class MemoryDataset:
     def __init__(self, n_videos, n_frames, h, w, bf):
         import numpy as np
         self.h, self.w, self.bf = h, w, bf
+        self.frame_shape = (h, w)
         self.frames = {}
         self.vids = {}
         for v in range(n_videos):
@@ -1482,26 +1567,67 @@ class MemoryDataset:
         return sample
 
 
+def eval_loops(m, data, cfg, flags, device, tmp, counts, n_classes=1,
+               what=''):
+    """The eval CLI's loop (``tools/test.evaluate``) over ``data``
+    sequentially and with ``--streams 2 --stage-frames``, as the CLI runs
+    it with ``flags``; each loop run twice, the second time under torch's
+    sync debug mode (0 host syncs per step besides the result fetch
+    required).  Returns {mode: (metrics, pairs/s)}."""
+    from stereotracking_tpu_torch.evaluation import (CocoMAPEvaluator,
+                                                     MOTDroneMetrics)
+    from stereotracking_tpu_torch.tools import test as cli
+    videos = data.videos()
+    frames = sum(len(data.video_frames(v)) for v in videos)
+    got = {}
+    for mode, extra in (('sequential', []),
+                        ('streams 2', ['--streams', '2', '--stage-frames'])):
+        args = cli.parse_args([CONFIG, '--device', str(device),
+                               '--work-dir', tmp] + flags + extra)
+
+        def run():
+            mot = MOTDroneMetrics(outfile_dir=tmp)
+            coco = CocoMAPEvaluator(num_classes=n_classes)
+            n, el = cli.evaluate(m, data, videos, args, cfg['img_scale'],
+                                 mot, coco)
+            return n, el, {**mot.evaluate(), **coco.evaluate()}
+
+        n, elapsed, metrics = run()
+        longest = max(len(data.video_frames(v)) for v in videos)
+        n_steps = frames if mode == 'sequential' else longest + 1  # warm-up
+        syncs = count_syncs(run) / n_steps
+        require(syncs == 0, f'eval {what} {mode}: {syncs} host syncs per '
+                f'step besides the result fetch')
+        require(n == frames, f'eval {what} {mode}: {n} frames scored')
+        got[mode] = (metrics, n / elapsed)
+        h, w = data.frame_shape
+        print(f'eval {what} {mode}: {n} frames of {h}x{w} in '
+              f'{elapsed * 1e3:.1f} ms = {n / elapsed:.1f} stereo pairs/s; '
+              f'host syncs per step {syncs:.2f} (torch sync debug mode) + 1 '
+              f'result fetch; ' + ', '.join(f'{k} {metrics[k]:.4f}'
+                                            for k in counts), flush=True)
+    return got
+
+
 def run_eval(model, device):
     """Phase 8: the eval CLI's loop (``tools/test.evaluate``) on a dataset
     held in memory (2 videos x 6 frames of 1080x1920, ``img_scale`` the
     frame size), with the flagship config and ``init_model`` weights from a
     ``.pth`` written from the phases' model; sequentially and with
-    ``--streams 2 --stage-frames``, in float32 and with ``--bf16``; pairs/s
-    and host syncs per step printed.  The count metrics of the two loops
-    must be equal: in float32 as run; in bf16 with cuDNN off, since cuDNN's
-    bf16 convolutions round differently at batch 1 and 2 (the bf16 runs
-    with cuDNN print how far they differ, a finding).  Then ``inference_mot`` over 2 frames must equal
+    ``--streams 2 --stage-frames``, in float32 and with ``--bf16``, as the
+    CLI runs them (in bf16 on the card with cuDNN off:
+    ``tools/test.batch_invariant_convs``); pairs/s and host syncs per step
+    printed.  The count metrics of the two loops must be equal.  A finding,
+    not a check: the bf16 loops again with the CLI's choice overridden
+    (cuDNN on, the loop as it ran before), how far they differ and their
+    pairs/s.  Then ``inference_mot`` over 2 frames must equal
     ``track_raw`` on them (ids exact, boxes within 1e-3 px)."""
-    import contextlib
     import tempfile
 
     import numpy as np
     import torch
     from stereotracking_tpu_torch.apis.inference import (inference_mot,
                                                          init_model)
-    from stereotracking_tpu_torch.evaluation import (CocoMAPEvaluator,
-                                                     MOTDroneMetrics)
     from stereotracking_tpu_torch.models.mot import (OCSORTDisparity,
                                                      result_to_host)
     from stereotracking_tpu_torch.tools import test as cli
@@ -1523,53 +1649,41 @@ def run_eval(model, device):
             flags = ['--bf16'] if dtype == 'bf16' else []
             m = init_model(cfg, pth, device=device,
                            dtype=torch.bfloat16 if flags else None)
-            # bf16: cuDNN's bf16 convolutions round differently at batch 1
-            # and 2 (tools/batch_invariance.py), so the loops' equality is
-            # held with cuDNN off, PyTorch's batch-invariant convolutions
-            for cudnn in ((True,) if dtype == 'float32' else (True, False)):
-                got = {}
-                for mode, extra in (('sequential', []),
-                                    ('streams 2', ['--streams', '2',
-                                                   '--stage-frames'])):
-                    args = cli.parse_args([CONFIG, '--device', str(device),
-                                           '--work-dir', tmp] + flags + extra)
-
-                    def run():
-                        mot = MOTDroneMetrics(outfile_dir=tmp)
-                        coco = CocoMAPEvaluator(num_classes=1)
-                        with (contextlib.nullcontext() if cudnn else
-                              torch.backends.cudnn.flags(enabled=False)):
-                            n, el = cli.evaluate(m, data, videos, args,
-                                                 cfg['img_scale'], mot, coco)
-                        return n, el, {**mot.evaluate(), **coco.evaluate()}
-
-                    n, elapsed, metrics = run()
-                    n_steps = 12 if mode == 'sequential' else 6 + 1  # warm-up
-                    syncs = count_syncs(run) / n_steps
-                    require(syncs == 0, f'eval {dtype} {mode}: {syncs} host '
-                            f'syncs per step besides the result fetch')
-                    require(n == 12, f'eval {dtype} {mode}: {n} frames scored')
-                    got[mode] = metrics
-                    what = f'{dtype} {mode}' + ('' if cudnn else ', cuDNN off')
-                    out[what] = dict(pairs_per_s=n / elapsed,
-                                     syncs_per_step=syncs)
-                    print(f'eval {what}: {n} frames of {FRAME_H}x{FRAME_W} in '
-                          f'{elapsed * 1e3:.1f} ms = {n / elapsed:.1f} stereo '
-                          f'pairs/s; host syncs per step {syncs:.2f} (torch '
-                          f'sync debug mode) + 1 result fetch; '
-                          + ', '.join(f'{k} {metrics[k]:.4f}' for k in counts),
-                          flush=True)
-                apart = [k for k in counts
-                         if got['sequential'][k] != got['streams 2'][k]]
-                if dtype == 'bf16' and cudnn:
-                    print(f'eval finding: bf16 with cuDNN, sequential and '
-                          f'streams 2 differ in {apart or "none"} of {counts}',
-                          flush=True)
-                    continue
-                require(not apart, f'eval {dtype}' + (
-                    '' if cudnn else ' (cuDNN off)') + f': {apart} differ: '
-                    f'sequential {got["sequential"]}, streams 2 '
-                    f'{got["streams 2"]}')
+            with cli.batch_invariant_convs(bool(flags), device) as off:
+                pass
+            require(off == (dtype == 'bf16'),
+                    f'eval {dtype}: the CLI chose cuDNN off = {off}')
+            got = eval_loops(m, data, cfg, flags, device, tmp, counts,
+                             what=dtype)
+            require(torch.backends.cudnn.enabled, 'eval: cuDNN stayed off '
+                    'after the CLI loop')
+            apart = [k for k in counts
+                     if got['sequential'][0][k] != got['streams 2'][0][k]]
+            require(not apart, f'eval {dtype}: {apart} differ: sequential '
+                    f'{got["sequential"][0]}, streams 2 '
+                    f'{got["streams 2"][0]}')
+            out[dtype] = {mode: pps for mode, (_, pps) in got.items()}
+            if dtype != 'bf16':
+                continue
+            # the finding: the bf16 loops with cuDNN on
+            choose = cli.batch_invariant_convs
+            cli.batch_invariant_convs = (
+                lambda bf16, dev: contextlib.nullcontext(False))
+            try:
+                on = eval_loops(m, data, cfg, flags, device, tmp, counts,
+                                what='bf16 with cuDNN (the CLI\'s choice '
+                                'overridden)')
+            finally:
+                cli.batch_invariant_convs = choose
+            apart = [k for k in counts
+                     if on['sequential'][0][k] != on['streams 2'][0][k]]
+            out['bf16 cudnn'] = {mode: pps for mode, (_, pps) in on.items()}
+            print(f'eval finding: bf16 with cuDNN, sequential and streams 2 '
+                  f'differ in {apart or "none"} of {counts}; pairs/s '
+                  f'sequential {on["sequential"][1]:.1f} with cuDNN, '
+                  f'{got["sequential"][1]:.1f} as the CLI runs (cuDNN off); '
+                  f'streams 2 {on["streams 2"][1]:.1f} and '
+                  f'{got["streams 2"][1]:.1f}', flush=True)
 
     # inference_mot against track_raw on the same frames and weights
     ref = OCSORTDisparity(m.cfg, module=m.module, device=device)
@@ -1861,6 +1975,260 @@ def serve_export(state, device):
           flush=True)
 
 
+# ------------------------------------------------------ other configs ----
+
+KITTI_CONFIG = os.path.join(REPO, 'configs', 'stereo_tracking', 'ocsort',
+                            'yolox_s_kitti_disp.py')
+MONO_CONFIG = os.path.join(REPO, 'configs', 'mot', 'ocsort',
+                           'yolox_s_ocsort_monocular.py')
+KITTI_H, KITTI_W = 375, 1242     # a KITTI left image
+OTHER_TRAIN_STEPS = 3
+
+
+def no_stage_kernels(mot):
+    """Launches per step of a path with no stage kernel (the single and
+    concatenated backbones): depth twice, or once where the config keeps
+    the detection's depth (``reuse_det_depth``, the default of both
+    packages, which the monocular config keeps), 3 assignments, 1 NMS."""
+    return dict(stem=0, stage1=0, stage2=0, stage3=0,
+                depth=1 if mot.reuse_det_depth else 2, assignment=3, nms=1)
+
+
+def load_cfg(path):
+    from stereotracking_tpu_torch.config import load_config
+    return load_config(path)
+
+
+def set_head_bias(module, bias):
+    """The head's cls and obj biases, so that random-weight detections
+    pass the tracker's gates."""
+    import torch
+    head = module.bbox_head.head_module
+    with torch.no_grad():
+        for conv in (*head.multi_level_conv_cls, *head.multi_level_conv_obj):
+            conv.bias.fill_(bias)
+
+
+def resized_frames(n, h, w, scale, seed):
+    """``make_frames``' raw (h, w) frames resized keep-ratio to ``scale`` as
+    the eval CLI resizes them (bilinear image, nearest disparity), as the
+    (img uint8, disp uint16) that it hands ``track_raw``."""
+    from stereotracking_tpu_torch.apis.inference import raw_frame
+    from stereotracking_tpu_torch.data import transforms as T
+    out = []
+    for img, disp in make_frames(n, h, w, seed):
+        sample = dict(img=img, **T.disparity_postprocess(disp))
+        out.append(raw_frame(T.resize_keep_ratio(sample, scale)))
+    return out
+
+
+def run_kitti(device, card):
+    """Phase 12a: the KITTI stereo config (dual backbone, 2 classes) at full
+    width, seeded weights, on 375x1242 frames resized as the CLI does (386
+    x 1280, padded to 416x1280): every kernel of the path against its plain
+    version at 8 streams of this shape (stage 3 explicitly; depth, JV and
+    NMS on the main path's own inputs, both labels among them); one stream
+    over 6 frames and 8 streams over 8 steps, replayed; the eval CLI's loop
+    over 2 videos x 6 frames in memory, sequential and ``--streams 2``,
+    float32: count metrics equal.  Returns the kernel rows and the trace
+    jobs."""
+    import tempfile
+
+    import torch
+    from stereotracking_tpu_torch.apis.builder import build_model
+    from stereotracking_tpu_torch.models.csp_darknet import StageBackends
+    from stereotracking_tpu_torch.models.preprocessor import padded_shape
+    from stereotracking_tpu_torch.parallel.multistream import \
+        MultiStreamTracker
+    cfg = load_cfg(KITTI_CONFIG)
+    scale = tuple(cfg['img_scale'])
+    model = build_model(cfg, device=device, seed=SEED + 11)
+    # both classes' biases equal: which class a box keeps is the weights'
+    set_head_bias(model.module, HEAD_BIAS)
+    mot = model.cfg
+    require(mot.detector.num_classes == 2 and mot.backends == StageBackends(
+        'cuda', 'cuda', 'cuda', 'torch'), f'KITTI config: {mot}')
+    streams = [resized_frames(N_STEPS, KITTI_H, KITTI_W, scale, 400 + s)
+               for s in range(N_STREAMS)]
+    h, w = streams[0][0][0].shape[:2]
+    oh, ow = padded_shape(h, w)
+    require((h, w, oh, ow) == (386, 1280, 416, 1280),
+            f'KITTI frames {(h, w)} padded to {(oh, ow)}')
+    print(f'KITTI kernels: {N_STREAMS} streams of {KITTI_H}x{KITTI_W} '
+          f'resized to {h}x{w}, padded to {oh}x{ow}; stage outputs '
+          f'{oh // 4}x{ow // 4}, {oh // 8}x{ow // 8}, {oh // 16}x{ow // 16}',
+          flush=True)
+    res, _ = check_kernels(model, [f[0] for f in streams],
+                           [f[1] for f in streams], device)
+
+    one = [to_card([f], device) for f in resized_frames(
+        N_FRAMES, KITTI_H, KITTI_W, scale, 500)]
+    r1 = replayed_run(model, one, 0, 'KITTI one stream',
+                      dict(PER_STEP, stage3=0))
+    ms = MultiStreamTracker(mot, N_STREAMS, module=model.module,
+                            device=device)
+    steps = [to_card([streams[s][t] for s in range(N_STREAMS)], device)
+             for t in range(N_STEPS)]
+    r8 = replayed_run(ms, steps, N_STREAMS, 'KITTI 8 streams',
+                      dict(PER_STEP, stage3=0))
+    # the NMS inputs checked above are those of step 1: both labels kept
+    step1 = r8['results'][1]
+    labels = set(step1.det_labels[step1.det_valid].tolist())
+    require(labels == {0, 1}, f'KITTI: step 1 kept labels {labels}')
+    for what, r in (('one stream', r1), ('8 streams', r8)):
+        print(f'KITTI {what}: ms per step {[round(x, 2) for x in r["per_step"]]}; host syncs per '
+              f'step {r["syncs"]}; replayed == eager (ids exact, boxes '
+              f'within {r["err"]:.3g} px)', flush=True)
+    print(f'KITTI ({card}): one stream {r1["ms"]:.2f} ms per frame (median '
+          f'of frames 2-{N_FRAMES - 1}), 8 streams {r8["ms"]:.2f} ms per '
+          f'step = {N_STREAMS / r8["ms"] * 1e3:.1f} stereo pairs/s, '
+          f'replayed; labels kept at step 1: {sorted(labels)}', flush=True)
+
+    bf = float(cfg['model']['baseline']) * float(cfg['model']['focal_length'])
+    data = MemoryDataset(2, 6, KITTI_H, KITTI_W, bf)
+    counts = ('CLR_TP', 'CLR_FP', 'CLR_FN', 'IDSW', 'MOTA', 'IDF1')
+    with tempfile.TemporaryDirectory() as tmp:
+        got = eval_loops(model, data, cfg, [], device, tmp, counts,
+                         n_classes=2, what='KITTI float32')
+    apart = [k for k in counts
+             if got['sequential'][0][k] != got['streams 2'][0][k]]
+    require(not apart, f'KITTI eval: {apart} differ between the loops')
+    return json_rows(res), [r1['job'], r8['job']]
+
+
+def path_kernels(model, raw, device, what):
+    """A path without stage kernels: its depth, JV and NMS kernels against
+    their plain versions on the inputs that the path hands them at its
+    second step over one stream's ``raw`` frames (``check_path_kernels``).
+    Returns {'<what>_<H>x<W>': JSON rows} at the padded frame shape."""
+    from stereotracking_tpu_torch.models.preprocessor import padded_shape
+    oh, ow = padded_shape(*raw[0][0].shape[:2])
+    print(f'{what} kernels: one stream of {oh}x{ow} (padded), the '
+          f'{model.cfg.detector.backbone!r} backbone\'s candidates',
+          flush=True)
+    res, _ = check_path_kernels(model, [raw[0]], [raw[1]], device)
+    return {f'{what}_{oh}x{ow}': json_rows(res)}
+
+
+def run_mono(device, card):
+    """Phase 12b: the monocular config (single backbone, every stage on the
+    modules) over 6 frames of 1080x1920 resized to 720x1280 (padded to
+    736x1280): depth, JV and NMS held against their plain versions on the
+    path's own inputs; replayed, 0 host syncs, equal to the eager step; an
+    explicit ``stem_backend='cuda'`` must raise in ``build_mot_config``.
+    Returns its raw frames, the kernel rows and the trace job."""
+    from stereotracking_tpu_torch.apis.builder import (build_model,
+                                                       build_mot_config)
+    from stereotracking_tpu_torch.models.csp_darknet import StageBackends
+    cfg = load_cfg(MONO_CONFIG)
+    bad = dict(cfg['model'], stem_backend='cuda')
+    try:
+        build_mot_config(bad, device)
+    except ValueError as e:
+        print(f'mono: stem_backend=\'cuda\' refused: {e}', flush=True)
+    else:
+        raise SmokeFailure("mono: build_mot_config took stem_backend='cuda'")
+    model = build_model(cfg, device=device, seed=SEED + 12)
+    set_head_bias(model.module, HEAD_BIAS)
+    require(model.cfg.detector.backbone == 'single'
+            and model.cfg.backends == StageBackends(),
+            f'mono config: {model.cfg.detector}, {model.cfg.backends}')
+    raw = resized_frames(N_FRAMES, FRAME_H, FRAME_W,
+                         tuple(cfg['img_scale']), 600)
+    rows = path_kernels(model, raw, device, 'mono')
+    frames = [to_card([f], device) for f in raw]
+    r = replayed_run(model, frames, 0, 'mono one stream',
+                     no_stage_kernels(model.cfg))
+    print(f'mono ({card}): {r["ms"]:.2f} ms per frame (median of frames '
+          f'2-{N_FRAMES - 1}) at {tuple(frames[0][0].shape[1:3])}, replayed; '
+          f'ms per step {[round(x, 2) for x in r["per_step"]]}; host syncs per step {r["syncs"]}; '
+          f'replayed == eager (ids exact, boxes within {r["err"]:.3g} px)',
+          flush=True)
+    return raw, rows, r['job']
+
+
+def run_concat(device, raw):
+    """Phase 12c: the flagship config with the V0 concatenated backbone
+    over 2 of the monocular phase's raw frames: depth, JV and NMS held
+    against their plain versions on the path's own inputs; replayed,
+    equal to the eager step; its 'auto' stage keys move to the modules
+    with one warning.  Returns the kernel rows and the trace job."""
+    from stereotracking_tpu_torch.apis.builder import build_model
+    cfg = flagship_cfg()
+    cfg['model']['detector']['backbone']['type'] = \
+        'YOLOXCSPDarknet_Disparity_V0_MMYOLO'
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        model = build_model(cfg, device=device, seed=SEED + 13)
+    said = [str(w.message) for w in caught if 'stage kernel' in
+            str(w.message)]
+    require(len(said) == 1 and model.cfg.detector.backbone == 'concat',
+            f'concat: {model.cfg.detector.backbone}, warnings {said}')
+    set_head_bias(model.module, HEAD_BIAS)
+    rows = path_kernels(model, raw, device, 'concat')
+    frames = [to_card([f], device) for f in raw[:2]]
+    r = replayed_run(model, frames, 0, 'concat one stream',
+                     no_stage_kernels(model.cfg))
+    print(f'concat: builder: {said[0]}; ms per step {[round(x, 2) for x in r["per_step"]]}; host '
+          f'syncs per step {r["syncs"]}; replayed == eager (ids exact, boxes '
+          f'within {r["err"]:.3g} px)', flush=True)
+    return rows, r['job']
+
+
+def run_train_single(device, batches, card):
+    """Phase 12d: the single backbone (the monocular config's detector, full
+    width, float32) in train mode: one warm-up and OTHER_TRAIN_STEPS timed
+    ``train_step``s at batch 8 of 736x1280 on phase 9's batches, the image
+    only; finite losses, ms per step."""
+    import torch
+    from stereotracking_tpu_torch.apis.builder import build_detector_config
+    from stereotracking_tpu_torch.train.losses import YOLOXLossConfig
+    from stereotracking_tpu_torch.train.schedules import yolox_schedule
+    from stereotracking_tpu_torch.train.train_state import train_step
+    det_cfg = build_detector_config(load_cfg(MONO_CONFIG)['model'][
+        'detector'])
+    require(det_cfg.backbone == 'single', f'train: {det_cfg}')
+    state = train_state(device, det_cfg, yolox_schedule(
+        0.001 / 8 * TRAIN_BATCH, steps_per_epoch=100))
+    loss_cfg = YOLOXLossConfig(num_classes=det_cfg.num_classes)
+    mono = [{k: v for k, v in b.items() if k != 'disp_postp'}
+            for b in batches]
+    losses = [train_step(state, mono[0], loss_cfg)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(OTHER_TRAIN_STEPS):
+        losses.append(train_step(state, mono[i % 2], loss_cfg))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / OTHER_TRAIN_STEPS * 1e3
+    train_losses_finite(losses, 'train single')
+    print(f'train single ({card}): {OTHER_TRAIN_STEPS} steps of batch '
+          f'{TRAIN_BATCH} x {TRAIN_H}x{TRAIN_W} float32 (TF32 off), the image '
+          f'only, after 1 warm-up step: {ms:.2f} ms/step; losses '
+          f'{[round(float(x["loss"]), 4) for x in losses]}', flush=True)
+    return ms
+
+
+def run_other_configs(device, batches):
+    """Phase 12: the KITTI, monocular and concatenated configs and the
+    single backbone's train step.  Returns {'<config>_<H>x<W>': kernel
+    rows} and the trace jobs (phase 10 traces them: the single and concat
+    paths' counts by ``no_stage_kernels``, the flagship's for KITTI's)."""
+    from stereotracking_tpu_torch.tools.bench_train import card_name
+    card = card_name()
+    t0 = time.perf_counter()
+    kitti, jobs = run_kitti(device, card)
+    rows = {'kitti_416x1280': kitti}
+    raw, mono, job = run_mono(device, card)
+    rows.update(mono)
+    jobs.append(job)
+    concat, job = run_concat(device, raw)
+    rows.update(concat)
+    jobs.append(job)
+    run_train_single(device, batches, card)
+    print(f'other configs: {time.perf_counter() - t0:.1f} s', flush=True)
+    return rows, jobs
+
+
 def profile_train(device):
     """``--profile``: a torch.profiler window of two train steps (stage 1)
     of phase 9's detector and batches, built anew, each kernel's device
@@ -1967,6 +2335,7 @@ def main():
                            'this script')
     sys.path.insert(0, REPO)
     from stereotracking_tpu_torch import _kernels
+    from stereotracking_tpu_torch.models.preprocessor import padded_shape
     t_start = time.perf_counter()
     device = torch.device('cuda', 0)
     torch.backends.cudnn.allow_tf32 = False
@@ -1993,10 +2362,16 @@ def main():
     streams, nexts = [f[0] for f in two], [f[1] for f in two]
     _, trace_one = check_kernels(model, streams[:1], nexts[:1], device)
     res, trace = check_kernels(model, streams, nexts, device)
-    del two, nexts
+    # the flagship only: the depth kernel also on synthetic boxes at every
+    # pyramid level and through every vote branch
+    img, disp_u16 = to_card(streams, device)
+    res['depth']['synthetic'], depth_trace = check_depth(
+        model.cfg, img, disp_u16, *padded_shape(FRAME_H, FRAME_W), device,
+        10)
+    del two, nexts, img, disp_u16
     check_small_reference(model, device)
     slice_frames = make_frames(N_FRAMES, FRAME_H, FRAME_W, SEED)
-    _, slice_job = run_slice(model, slice_frames, device)
+    slice_job = run_slice(model, slice_frames, device)
     mixed_jobs = run_mixed(model, slice_frames[:2], device)
     f32 = run_multistream(model, device)
     bf16 = run_bf16(model, device, f32)
@@ -2006,12 +2381,21 @@ def main():
     state, batches = run_train(device)
     check_train_on_cpu(device)
     serve_export(state, device)
-    del state, batches
+    del state
+    other_rows, other_jobs = run_other_configs(device, batches)
+    del batches
     # the main paths' launches, from torch.profiler traces of their replayed
     # steps, after the timed phases: a profiler session slows the host work
     # of the process after it
-    for job in [slice_job] + mixed_jobs + [bf16['job']]:
+    for job in [slice_job] + mixed_jobs + [bf16['job']] + other_jobs:
         trace_launches(**job)
+    if '--profile' in sys.argv[1:]:
+        for job in other_jobs:          # the traced steps' ids, continued
+            n = len(job['frames'])
+            profile_steps(lambda t, job=job, n=n: job['tracker'].track_raw(
+                *job['frames'][t], [n + t] * N_STREAMS
+                if isinstance(job['ids'][0], list) else n + t), job['what'])
+    del other_jobs
     counts = trace_launches(**f32['job'])
     del slice_job, mixed_jobs
     if '--profile' in sys.argv[1:]:
@@ -2031,6 +2415,7 @@ def main():
     # profiler session slows the host work of the process after it
     trace_one()
     trace()
+    depth_trace()
     probe_launches, probe, prod = run_probe()
     if '--profile' in sys.argv[1:]:
         # last: a trace this large left the profiler dropping every device
@@ -2044,6 +2429,9 @@ def main():
         bound_by=res['stage1']['bound_by'], library_ms=None)
     print(f'smoke: {time.perf_counter() - t_start:.1f} s in all', flush=True)
 
+    for config, rows in other_rows.items():
+        for name, row in rows.items():
+            res[name][config] = row
     kernels = [dict(name=name, route='cuda', source=src, replaces=rep,
                     launches=counts[name], **res[name])
                for name, (src, rep) in KERNELS.items()]

@@ -13,8 +13,11 @@ elsewhere, and falls back to the modules when its predecessor is off or,
 on a CUDA device, when the kernel is not built for the model's widths or
 depth; an explicit ``'cuda'`` in either case raises here, not at the first
 frame.  ``stage3_backend='auto'`` is the float32 modules everywhere, as in
-the JAX builder.  On the CPU, ``'cuda'`` runs the kernels' plain versions,
-which take any width.  ``pack_backend`` has no meaning here and is
+the JAX builder.  The single-branch and concatenated backbones
+(``'single'``, ``'concat'``) have no stage kernel, in the JAX package as
+here: every ``'auto'`` stage of theirs is the modules (one warning says
+so) and an explicit ``'cuda'`` raises.  On the CPU, ``'cuda'`` runs the
+kernels' plain versions, which take any width.  ``pack_backend`` has no meaning here and is
 ignored.  Everything runs on the card unless ``device`` says otherwise.
 """
 from __future__ import annotations
@@ -98,6 +101,18 @@ def resolve_stage_backends(model_cfg: Dict[str, Any],
         raw.append(_ALIASES.get(val, val))
         if raw[-1] not in ('auto', 'cuda', 'torch'):
             raise ValueError(f'unknown {name}_backend {val!r}')
+    if det.backbone != 'dual':
+        # the kernels read the dual backbone's branches (the JAX detector's
+        # stem kernel reads the disp_stem parameters)
+        asked = [f'{n}_backend' for n, r in zip(StageBackends._fields, raw)
+                 if r == 'cuda']
+        if asked:
+            raise ValueError(f'{", ".join(asked)}=\'cuda\': the '
+                             f'{det.backbone!r} backbone has no stage kernel')
+        if 'auto' in raw:
+            warnings.warn(f'the {det.backbone!r} backbone has no stage '
+                          f'kernel: every stage runs on the modules')
+        return StageBackends()
     on_card = device_type == 'cuda'
     problems = (kernel_problems(det) if on_card
                 else StageBackends(*[None] * len(raw)))

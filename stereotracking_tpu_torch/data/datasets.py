@@ -1,13 +1,13 @@
 """Datasets: COCO(-VID) with stereo-disparity path derivation.
 
-A copy of ``CocoDispDataset`` and ``MOTDispDataset`` from
-``stereotracking_tpu/data/datasets.py``: the reference mmtrack datasets
-(``datasets/coco_disparity.py:12-111``, image level;
+A copy of ``CocoDispDataset``, ``MOTDispDataset`` and ``MOTKittiDataset``
+from ``stereotracking_tpu/data/datasets.py``: the reference mmtrack
+datasets (``datasets/coco_disparity.py:12-111``, image level;
 ``mot_disp_dataset.py:10-105``, video level with per-instance 3D
-location/visibility), with the same path conventions: AirSim file names
-derive ``disparity``/``depth`` paths by replacing ``left``; KITTI replaces
-``img2``.  The KITTI and DanceTrack readers and the training samplers are
-not ported.
+location/visibility; ``mot_kitti_dataset.py``), with the same path
+conventions: AirSim file names derive ``disparity``/``depth`` paths by
+replacing ``left``; KITTI replaces ``img2``.  The DanceTrack reader and the
+training samplers are not ported (ROADMAP.md Queue 1 item 3).
 """
 from __future__ import annotations
 
@@ -175,3 +175,12 @@ class MOTDispDataset(CocoDispDataset):
             sample['depth_postp'] = T.load_depth(info['depth_path'],
                                                  mode=self.depth_mode)
         return sample
+
+
+class MOTKittiDataset(MOTDispDataset):
+    """KITTI stereo tracking dataset (reference mot_kitti_dataset.py):
+    ``MOTDispDataset`` with the disparity paths derived from the ``img2``
+    naming."""
+
+    def __init__(self, *args, path_token: str = 'img2', **kwargs):
+        super().__init__(*args, path_token=path_token, **kwargs)

@@ -1,15 +1,17 @@
 """MOT evaluation front-end with the drone depth-range protocol.
 
-``MOTDroneMetrics``, copied from ``stereotracking_tpu/evaluation/
-mot_metrics.py``, mirrors the reference mmtrack ``MOTDroneMetrics``
+Copied from ``stereotracking_tpu/evaluation/mot_metrics.py``.
+``MOTDroneMetrics`` mirrors the reference mmtrack ``MOTDroneMetrics``
 (``evaluation/metrics/mot_drone_metrics.py:37-427``):
 per-frame GT and prediction rows are buffered per video, predictions are
 kept only when ``0 < depth <= depth_thr`` and ground truth only when the 3D
 location's Z is within ``depth_thr`` (:188,206), MOT-Challenge txt files can
 be dumped for external tooling, and HOTA/CLEAR/Identity are computed (here
 by the in-repo implementations instead of the TrackEval package).
-The MOT-Challenge and KITTI variants and the multi-host gather are not
-ported.
+``MOTChallengeMetrics`` is the same without the depth filter, and
+``MOTKittiMetrics`` adds the KITTI txt layout and the devkit protocol
+(``kitti_protocol.KittiEvaluator``).  The multi-host gather is not ported
+(ROADMAP.md Queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -103,3 +105,71 @@ class MOTDroneMetrics:
         }
         keys = [k for m in metrics for k in wanted.get(m, ())]
         return {k: out[k] for k in keys if k in out}
+
+
+class MOTChallengeMetrics(MOTDroneMetrics):
+    """MOT-Challenge evaluation: same HOTA/CLEAR/Identity machinery without
+    the drone depth filter (reference mot_challenge_metrics.py)."""
+
+    def __init__(self, iou_threshold: float = 0.5,
+                 outfile_dir: Optional[str] = None, **kwargs):
+        super().__init__(depth_thr=float('inf'), ignore_depth=True,
+                         iou_threshold=iou_threshold,
+                         outfile_dir=outfile_dir)
+
+
+class MOTKittiMetrics(MOTDroneMetrics):
+    """KITTI-format tracking evaluation (reference mot_kitti_metrics.py):
+    no depth filter; ``dump_kitti_txt`` writes the KITTI row layout;
+    ``process_frame_kitti`` + ``evaluate_kitti`` run the devkit protocol
+    (per-class car/pedestrian scoring with neighboring-class distractors,
+    occlusion/truncation/height ignores and DontCare regions — see
+    kitti_protocol.py)."""
+
+    def __init__(self, iou_threshold: float = 0.5,
+                 outfile_dir: Optional[str] = None,
+                 class_names: Sequence[str] = ('Car', 'Pedestrian'),
+                 classes_eval: Sequence[str] = ('car', 'pedestrian'),
+                 **kwargs):
+        super().__init__(depth_thr=float('inf'), ignore_depth=True,
+                         iou_threshold=iou_threshold,
+                         outfile_dir=outfile_dir)
+        self.class_names = class_names
+        self._pred_labels = defaultdict(dict)
+        from .kitti_protocol import KittiEvaluator
+        self.kitti = KittiEvaluator(classes_eval, iou_threshold)
+
+    def process_frame_kitti(self, video, frame, **kw):
+        """Full-annotation streaming entry for the devkit protocol; see
+        KittiEvaluator.process_frame for the keyword surface."""
+        self.kitti.process_frame(video, frame, **kw)
+
+    def evaluate_kitti(self):
+        return self.kitti.evaluate()
+
+    def process_frame(self, video, frame, gt_ids, gt_bboxes, gt_depths,
+                      pred_ids, pred_bboxes, pred_depths,
+                      pred_labels=None):
+        super().process_frame(video, frame, gt_ids, gt_bboxes, gt_depths,
+                              pred_ids, pred_bboxes, pred_depths)
+        if pred_labels is not None:
+            self._pred_labels[video][frame] = np.asarray(pred_labels, int)
+
+    def dump_kitti_txt(self, out_dir: Optional[str] = None):
+        out_dir = out_dir or self.outfile_dir
+        if out_dir is None:
+            raise ValueError('dump_kitti_txt: no out_dir and no outfile_dir')
+        os.makedirs(out_dir, exist_ok=True)
+        for video, frames in self._pred.items():
+            with open(os.path.join(out_dir, f'{video}.txt'), 'w') as f:
+                for frame in sorted(frames):
+                    ids, boxes = frames[frame]
+                    labels = self._pred_labels.get(video, {}).get(
+                        frame, np.zeros(len(ids), int))
+                    for i, b, l in zip(ids, boxes, labels):
+                        name = self.class_names[int(l) %
+                                                len(self.class_names)]
+                        f.write(f'{frame} {i} {name} 0 0 -10 '
+                                f'{b[0]:.2f} {b[1]:.2f} {b[2]:.2f} '
+                                f'{b[3]:.2f} -1 -1 -1 -1000 -1000 -1000 '
+                                f'-10 1\n')

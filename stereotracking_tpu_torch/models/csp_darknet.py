@@ -1,9 +1,20 @@
-"""Dual-branch CSPDarknet-P5 backbone (RGB + disparity), canonical form.
+"""CSPDarknet-P5 backbones, single- and dual-branch, canonical form.
 
-Port of ``CSPDarknetDual`` (``stereotracking_tpu/models/csp_darknet.py``):
-a Focus stem and stage 1 per branch, averaged at stride 4, then the shared
-stages 2-4 (SPPF in the last).  Module names follow mmyolo
-(``stem``, ``stageN.{0,1[,2]}``, ``disp_stem``, ``disp_stage1``).
+Port of ``stereotracking_tpu/models/csp_darknet.py``:
+
+- ``CSPDarknetDual`` (the flagship's): a Focus stem and stage 1 per
+  branch (RGB, disparity), averaged at stride 4, then the shared stages 2-4
+  (SPPF in the last);
+- ``CSPDarknet`` (the monocular configs'): one Focus stem and stages 1-4
+  on the image alone;
+- ``CSPDarknetConcat`` (the V0 variant): the image and the disparity
+  concatenated to 6 channels before one ``CSPDarknet``, named ``trunk`` as
+  in the Flax tree.
+
+Module names follow mmyolo (``stem``, ``stageN.{0,1[,2]}``, ``disp_stem``,
+``disp_stage1``).  The JAX package's space-to-depth and W-fold forms of
+the single branch (``_use_s2d``) are the same math in another layout and
+are not ported: the port evaluates the canonical form.
 
 Backends, one per stage (``StageBackends``): ``'torch'`` evaluates the
 modules in the compute ``dtype`` (the JAX package's XLA path; float32 by
@@ -17,7 +28,9 @@ hands over to the modules, its bf16 NHWC output becomes an NCHW view in
 (channels-last, as cuDNN's bf16 convolutions take it).  Every kernel takes
 the S frames of a batch in one launch.  A kernel wrapper given a CPU
 tensor runs its plain PyTorch version.  In train mode (``.train()``) every
-stage must be ``'torch'``: the kernels have no backward.
+stage must be ``'torch'``: the kernels have no backward.  The single and
+concat backbones have no kernel (the JAX package reaches none for them):
+every stage of theirs is ``'torch'``.
 """
 from __future__ import annotations
 
@@ -90,6 +103,59 @@ def _stage(cin: int, cout: int, num_blocks: int, add_identity: bool,
                                      dtype=dtype))
     layers.append(CSPLayer(cout, cout, num_blocks, add_identity, dtype=dtype))
     return nn.Sequential(*layers)
+
+
+class CSPDarknet(nn.Module):
+    """Single-branch CSPDarknet-P5: a Focus stem on ``in_channels`` input
+    channels and stages 1-4, all on the modules."""
+
+    def __init__(self, deepen_factor: float = 0.33,
+                 widen_factor: float = 0.5, in_channels: int = 3,
+                 spp_kernel_sizes: Tuple[int, ...] = (5, 9, 13),
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        stem_ch, dims = backbone_dims(deepen_factor, widen_factor)
+        self.stem = Focus(in_channels, stem_ch, dtype=dtype)
+        for i, ((cin, cout, _, n), (_, _, _, ident, spp)) in enumerate(
+                zip(dims, P5_ARCH)):
+            setattr(self, f'stage{i + 1}', _stage(
+                cin, cout, n, ident, spp, spp_kernel_sizes, dtype))
+
+    def features(self, x: torch.Tensor):
+        """NCHW input -> the (stage 2, 3, 4) NCHW features."""
+        y2 = self.stage2(self.stage1(self.stem(x)))
+        y3 = self.stage3(y2)
+        return y2, y3, self.stage4(y3)
+
+    def forward(self, inputs: dict,
+                backends: StageBackends = StageBackends()):
+        """``inputs``: 'img' (S, H, W, 3) float32; returns the (stage 2,
+        3, 4) NCHW features in the compute dtype."""
+        assert 'cuda' not in backends, backends  # the builder refuses it
+        return self.features(inputs['img'].permute(0, 3, 1, 2))
+
+
+class CSPDarknetConcat(nn.Module):
+    """V0 variant: 'img' and 'disp_postp' concatenated to 6 channels, then
+    one ``CSPDarknet`` (``trunk``)."""
+
+    def __init__(self, deepen_factor: float = 0.33,
+                 widen_factor: float = 0.5,
+                 spp_kernel_sizes: Tuple[int, ...] = (5, 9, 13),
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.trunk = CSPDarknet(deepen_factor, widen_factor, 6,
+                                spp_kernel_sizes, dtype)
+
+    def forward(self, inputs: dict,
+                backends: StageBackends = StageBackends()):
+        """``inputs``: 'img' and 'disp_postp' (S, H, W, 3) float32;
+        returns the (stage 2, 3, 4) NCHW features in the compute dtype."""
+        assert 'cuda' not in backends, backends  # the builder refuses it
+        x = torch.cat((inputs['img'], inputs['disp_postp']), dim=-1)
+        return self.trunk.features(x.permute(0, 3, 1, 2))
 
 
 class CSPDarknetDual(nn.Module):

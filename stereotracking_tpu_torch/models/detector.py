@@ -1,8 +1,9 @@
-"""YOLOX detector: dual backbone + PAFPN + head, and the fused postprocess.
+"""YOLOX detector: backbone + PAFPN + head, and the fused postprocess.
 
 Port of ``stereotracking_tpu/models/detector.py`` (``DetectorConfig``,
-the dual-branch ``YOLOXDetector`` and ``detector_predict``: forward,
-decode, score filter, class-aware NMS, ``scale_factor`` rescale).
+``YOLOXDetector`` with its backbone switch: ``'dual'``, ``'single'`` or
+``'concat'``, and ``detector_predict``: forward, decode, score filter,
+class-aware NMS, ``scale_factor`` rescale).
 """
 from __future__ import annotations
 
@@ -12,7 +13,8 @@ import torch
 from torch import nn
 
 from ..ops.nms import NMSResult, batched_nms, multiclass_candidates
-from .csp_darknet import CSPDarknetDual, StageBackends
+from .csp_darknet import (CSPDarknet, CSPDarknetConcat, CSPDarknetDual,
+                          StageBackends)
 from .pafpn import YOLOXPAFPN
 from .yolox_head import YOLOXHead, decode_predictions
 
@@ -22,15 +24,20 @@ class DetectorConfig(NamedTuple):
     deepen_factor: float = 0.33
     widen_factor: float = 0.5
     strides: Tuple[int, ...] = (8, 16, 32)
-    backbone: str = 'dual'
+    backbone: str = 'dual'          # 'dual' | 'single' | 'concat'
     score_thr: float = 0.01
     nms_iou_thr: float = 0.5
     max_per_img: int = 300
     pre_nms_top_k: int = 2048
 
 
+BACKBONES = {'dual': CSPDarknetDual, 'single': CSPDarknet,
+             'concat': CSPDarknetConcat}
+
+
 class YOLOXDetector(nn.Module):
-    """Dual-branch backbone -> PAFPN -> decoupled head (mm key names).
+    """Backbone (``cfg.backbone``) -> PAFPN -> decoupled head (mm key
+    names).
     Parameters are float32; the layers that run on the modules compute in
     ``dtype`` (the JAX ``YOLOXDetector.dtype``).  Built in eval mode;
     ``.train()`` (the trainer's) normalises with batch statistics, float32
@@ -39,13 +46,13 @@ class YOLOXDetector(nn.Module):
     def __init__(self, cfg: DetectorConfig = DetectorConfig(),
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if cfg.backbone != 'dual':
-            raise NotImplementedError(
-                f'backbone {cfg.backbone!r} is not ported (only dual)')
+        if cfg.backbone not in BACKBONES:
+            raise ValueError(f'unknown backbone {cfg.backbone!r}; one of '
+                             f'{tuple(BACKBONES)}')
         self.cfg = cfg
         self.dtype = dtype
-        self.backbone = CSPDarknetDual(cfg.deepen_factor, cfg.widen_factor,
-                                       dtype=dtype)
+        self.backbone = BACKBONES[cfg.backbone](
+            cfg.deepen_factor, cfg.widen_factor, dtype=dtype)
         self.neck = YOLOXPAFPN(deepen_factor=cfg.deepen_factor,
                                widen_factor=cfg.widen_factor, dtype=dtype)
         self.bbox_head = YOLOXHead(num_classes=cfg.num_classes,
@@ -56,7 +63,8 @@ class YOLOXDetector(nn.Module):
     def forward(self, inputs: dict,
                 backends: StageBackends = StageBackends()):
         """-> (cls, reg, obj): per-level (S, h, w, C) maps in ``dtype``;
-        backends as ``CSPDarknetDual.forward``."""
+        backends as ``CSPDarknetDual.forward`` (all 'torch' for the other
+        backbones)."""
         feats = self.backbone(inputs, backends)
         return self.bbox_head(self.neck(feats))
 

@@ -18,16 +18,24 @@ depth CSV.  Runs on the card unless ``--device cpu``; without a card
 videos and the options, and returns ``(n_frames, elapsed)``; ``main`` and
 ``chip_smoke.py`` (with a dataset held in memory) call it.  Every frame
 goes through ``track_raw``; each step's result leaves the card in one
-synchronisation (``models.mot.fetch_result``).
+synchronisation (``models.mot.fetch_result``).  With ``--bf16`` on a CUDA
+device both loops run with cuDNN off (``batch_invariant_convs``):
+cuDNN's bf16 convolutions round differently at batch 1 and at batch N, so
+the sequential and ``--streams`` loops would score differently, where the
+JAX contract has them equal; PyTorch's own convolutions are
+batch-invariant.  Float32 keeps cuDNN.
 
-Not ported, and refused with ``NotImplementedError``: ``--interpolate``,
-``--aflink``, ``--show-dir`` / ``--show-interval`` / ``--show-errors``,
-``--launcher`` / ``--dist-*`` and the dataset types other than
-``MOTDispDataset`` (ROADMAP.md Queue 1 item 3).
+The datasets are ``MOTDispDataset`` and ``MOTKittiDataset`` (the
+``img2`` naming).  The MOT metric is ``MOTDroneMetrics`` for every config,
+as the JAX CLI has it: both ignore ``test_evaluator``.  Not ported, and
+refused with ``NotImplementedError``: ``--interpolate``, ``--aflink``,
+``--show-dir`` / ``--show-interval`` / ``--show-errors``, ``--launcher`` /
+``--dist-*`` and the other dataset types (ROADMAP.md Queue 1 item 3).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
@@ -38,7 +46,7 @@ import torch
 
 from ..apis.inference import init_model, raw_frame
 from ..config import apply_overrides, load_config
-from ..data import MOTDispDataset, PrefetchIterator
+from ..data import MOTDispDataset, MOTKittiDataset, PrefetchIterator
 from ..data import transforms as T
 from ..evaluation import CocoMAPEvaluator, MOTDroneMetrics
 from ..models.mot import FrameResult, fetch_result
@@ -95,21 +103,46 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 
 def build_dataset(cfg: dict) -> MOTDispDataset:
-    """The config's ``test_dataloader.dataset`` (``MOTDispDataset`` only)."""
+    """The config's ``test_dataloader.dataset``: ``MOTDispDataset`` (with
+    its ``path_token`` when the config gives one) or ``MOTKittiDataset``
+    (the ``img2`` token), as the JAX CLI builds them."""
     ds_cfg = dict(cfg['test_dataloader']['dataset'])
     ds_type = ds_cfg.pop('type', 'MOTDispDataset')
-    if ds_type != 'MOTDispDataset':
-        raise NotImplementedError(f'dataset type {ds_type!r} {NOT_PORTED}')
     kw = {}
-    if 'path_token' in ds_cfg:
-        kw['path_token'] = ds_cfg['path_token']
-    return MOTDispDataset(
+    if ds_type == 'MOTKittiDataset':
+        ds_cls = MOTKittiDataset
+    elif ds_type == 'MOTDispDataset':
+        ds_cls = MOTDispDataset
+        if 'path_token' in ds_cfg:
+            kw['path_token'] = ds_cfg['path_token']
+    else:
+        raise NotImplementedError(f'dataset type {ds_type!r} {NOT_PORTED}')
+    return ds_cls(
         ann_file=os.path.join(ds_cfg.get('data_root', ''),
                               ds_cfg['ann_file']),
         data_root=ds_cfg.get('data_root', ''),
         img_prefix=ds_cfg.get('img_prefix', ''),
         depth_dir_name=ds_cfg.get('depth_dir_name'),
         classes=tuple(cfg.get('classes', ())) or None, **kw)
+
+
+@contextlib.contextmanager
+def batch_invariant_convs(bf16: bool, device):
+    """The eval loops' convolutions: with bf16 on a CUDA device, cuDNN off
+    inside the block (its bf16 convolutions depend on the batch, the
+    sequential loop's 1 frame against ``--streams N``'s N; PyTorch's own
+    do not), restored after; the float32 loops, and the CPU, keep the
+    default.  Yields whether cuDNN is off.  The step's CUDA graph keys on
+    the switch (models/captured_step.py), so a graph captured with cuDNN
+    on is never replayed inside, nor one captured inside after it."""
+    off = bool(bf16) and torch.device(device).type == 'cuda'
+    prev = torch.backends.cudnn.enabled
+    if off:
+        torch.backends.cudnn.enabled = False
+    try:
+        yield off
+    finally:
+        torch.backends.cudnn.enabled = prev
 
 
 def _record(video: str, t: int, sample: dict, res: FrameResult,
@@ -139,12 +172,28 @@ def evaluate(model, dataset, videos, args, img_scale, mot_metric,
     ``OCSORTDisparity``) into the metrics, sequentially or, with
     ``args.streams`` > 1, ``args.streams`` videos at a time.  Frames are
     resized keep-ratio to ``img_scale`` (h, w) unless they have that size
-    already.  Returns (frames scored, seconds of the timed loops)."""
+    already.  In bf16 on a CUDA device both loops run with cuDNN off
+    (``batch_invariant_convs``).  Returns (frames scored, seconds of the
+    timed loops)."""
     first = dataset.frame_info(dataset.video_frames(videos[0])[0])
     f = T.rescale_factor(first['height'], first['width'], tuple(img_scale))
-    if args.streams > 1:
-        return _multistream_eval(args, model, dataset, videos, img_scale, f,
-                                 mot_metric, coco_metric, csv_dump, logger)
+    with batch_invariant_convs(args.bf16, model.device) as invariant:
+        print(f'[test] {"bf16" if args.bf16 else "float32"} on '
+              f'{model.device.type}, '
+              + ('cuDNN off (batch-invariant convolutions)' if invariant
+                 else 'default convolutions') + f', streams {args.streams}',
+              flush=True)
+        if args.streams > 1:
+            return _multistream_eval(args, model, dataset, videos, img_scale,
+                                     f, mot_metric, coco_metric, csv_dump,
+                                     logger)
+        return _sequential_eval(args, model, dataset, videos, img_scale, f,
+                                mot_metric, coco_metric, csv_dump, logger)
+
+
+def _sequential_eval(args, model, dataset, videos, img_scale, f,
+                     mot_metric, coco_metric, csv_dump, logger):
+    """One video at a time through ``model.track_raw``."""
     n_frames = 0
     t_start = time.perf_counter()
     for vid in videos:

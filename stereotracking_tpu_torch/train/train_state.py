@@ -153,14 +153,16 @@ def flat_head(cls, reg, obj, strides, device) -> tuple:
 def train_step(state: TrainState, batch: dict,
                loss_cfg: YOLOXLossConfig) -> dict:
     """One optimizer step, in place on ``state``.  ``batch``: tensors on
-    the module's device, 'img' and 'disp_postp' (N, H, W, 3) float32,
+    the module's device, 'img' and (for the dual and concatenated
+    backbones) 'disp_postp' (N, H, W, 3) float32,
     'gt_bboxes' (N, G, 4), 'gt_labels' (N, G) int64, 'gt_valid' (N, G)
     bool.  Returns the detached losses and ``num_pos``, device tensors.
     Its phases are ``torch.profiler`` ranges (train.forward, train.loss,
     train.backward, train.optimizer_ema)."""
     module = state.module
     with record_function('train.forward'):
-        cls, reg, obj = module({k: batch[k] for k in ('img', 'disp_postp')})
+        cls, reg, obj = module({k: batch[k] for k in ('img', 'disp_postp')
+                                if k in batch})
     with record_function('train.loss'):
         priors, decoded, cls_f, reg_f, obj_f = flat_head(
             cls, reg, obj, module.cfg.strides, batch['img'].device)

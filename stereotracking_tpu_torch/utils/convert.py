@@ -11,7 +11,10 @@ returns a ``state_dict`` for ``models.detector.YOLOXDetector``:
   mapping as ``stereotracking_tpu/utils/torch_convert.py:10-19``.
 
 Branch weights are carried as they are: the disparity branch keeps its own
-stem and stage 1.  ``train_state_to_torch`` carries a whole JAX
+stem and stage 1.  The single-branch tree (``backbone/stem``,
+``backbone/stageN``) and the concatenated one (``backbone/trunk/...``)
+map by the same rules, to ``backbone.stem`` / ``backbone.trunk.stem`` and
+so on.  ``train_state_to_torch`` carries a whole JAX
 ``TrainState`` (weights, momentum trace, EMA and step) to the port's
 ``TrainState.load_state_dict``.
 """
@@ -48,19 +51,21 @@ def _flatten(tree: Dict[str, Any], prefix=()):
 
 
 def _module_path(path) -> str:
+    # a backbone stage sits at backbone/<stage>, or at backbone/trunk/<stage>
+    # in the concatenated backbone; its conv / spp / csp become indices
+    at = 2 if tuple(path[:2]) == ('backbone', 'trunk') else 1
+    is_stage = (path[0] == 'backbone' and len(path) > at
+                and re.match(r'^(disp_)?stage\d$', path[at]))
     out = []
     for i, seg in enumerate(path):
         if i == 0 and seg == 'bbox_head':
             out.append('bbox_head.head_module')
             continue
-        m = re.match(r'^(disp_)?stage(\d)$', seg)
-        if m and i == 1 and path[0] == 'backbone':
-            nxt = path[i + 1]
+        if is_stage and i == at:
             idx = {'conv': 0, 'spp': 1, 'csp': 2 if seg == 'stage4' else 1}
-            out.append(f'{seg}.{idx[nxt]}')
+            out.append(f'{seg}.{idx[path[i + 1]]}')
             continue
-        if i >= 2 and path[0] == 'backbone' and re.match(
-                r'^(disp_)?stage\d$', path[1]) and i == 2:
+        if is_stage and i == at + 1:
             continue          # consumed by the stage index above
         for pat, rep in _RENAMES:
             if pat.match(seg):
