@@ -9,10 +9,10 @@ Phases, in order; any failure exits non-zero:
    ``nvidia-smi`` name and power limit; turns TF32 off for the float32
    reference computations;
 2. build: compiles the CUDA kernels from ``stereotracking_tpu_torch/csrc``
-   (one nvcc per source, all at once, sm_90a) and prints the build time;
-   compiles the sources of the kernels redesigned for the H100 (the stem,
-   stages 1-3, depth, the JV and NMS) once more with ``-Xptxas -v`` and
-   prints their registers, shared memory and spills;
+   (one nvcc per source, all at once, sm_90a, with ``-Xptxas -v``) and
+   prints the build time and, for the kernels redesigned for the H100
+   (the stem, stages 1-3, depth, the JV and NMS), their registers, shared
+   memory and spills from that build;
 3. kernels: each kernel against its plain PyTorch version on the same
    inputs, at one stream and at 8 streams of 1080x1920 raw frames padded to
    1088x1920, with the tolerance stated beside each check; kernel, plain
@@ -33,7 +33,9 @@ Phases, in order; any failure exits non-zero:
    drop some); the device times of the depth, JV and NMS kernels (and the
    kernel launches of one depth extraction) come from ``torch.profiler``
    after the timed phases, since a profiler session slows the host work
-   after it;
+   after it; the stem kernel also at O = 24, 48 and 80 (YOLOX-tiny, -m
+   and -x) on both branches of the 8-stream frames with seeded random
+   weights, the same tolerance, times and bound (JSON ``stem.widths``);
 4. reference: on a small frame the kernel path's head outputs (stage 3
    through its kernel too) must agree with the float32 module path;
 5. slice: ``build_model(flagship config)`` on the card, ``track_raw`` over
@@ -43,8 +45,9 @@ Phases, in order; any failure exits non-zero:
    frames through the eager step (``predict_frames_batched``) equal (ids
    and validity exact, boxes within 1e-2 px) and timed beside the replays;
    then over 2 frames each the stem and stage-1 kernels with stage 2 on
-   the float32 modules, and a widen-0.25 config with every stage 'auto'
-   (the stem kernel only; the builder's warning for stage 1 printed);
+   the float32 modules, and widen-0.25, 0.375 and 0.75 configs with every
+   stage 'auto' (the stem kernel only, at O = 16, 24, 48; the builder's
+   warning for stage 1 printed);
 6. multi-stream: ``MultiStreamTracker`` with the flagship config and
    ``stage3_backend='cuda'``, 8 replayed steps of 8 streams (each stream
    its own seed); ms per step and stereo pairs/s, replayed and eager;
@@ -105,8 +108,8 @@ Phases, in order; any failure exits non-zero:
    padded to 416x1280): every kernel of its path held to its plain version
    at 8 streams of this shape with phase 3's tolerances (stage 3
    explicitly; depth, JV and NMS on the main path's own inputs, both labels
-   kept), one stream over 6 frames and 8 streams over 8 steps replayed
-   equal to eager with 0 host syncs (ms per frame, pairs/s), the eval
+   kept; the stem also at O = 24, 48, 80), one stream over 6 frames and
+   8 streams over 8 steps replayed equal to eager with 0 host syncs (ms per frame, pairs/s), the eval
    CLI's loop over 2 videos x 6 frames sequential and ``--streams 2`` in
    float32 (count metrics equal); the monocular config (single backbone,
    every stage on the modules; an explicit ``stem_backend='cuda'`` must
@@ -115,7 +118,23 @@ Phases, in order; any failure exits non-zero:
    keeps ``reuse_det_depth``'s default, True), assignment 3, nms 1 per
    step; the flagship config with the V0 concatenated backbone over 2
    frames, the same with depth 2; 3 train steps of the single backbone at batch
-   8 x 736x1280 (finite losses, ms per step).
+   8 x 736x1280 (finite losses, ms per step);
+13. moving camera (its launches counted in phase 10's traces): the
+   monocular config with camera-motion compensation
+   (``yolox_s_ocsort_monocular_cmc.py``, ``backend='device'``) through
+   ``init_model`` -> ``track_raw`` over 8 frames of 1080x1920 panning by
+   a known (dy, dx) = (-8, 15) px a frame: replayed from the step's graph
+   (no wrapper launch), 0 host syncs, equal to the eager step (ids
+   exact); the camera-motion chain alone captured in a graph and replayed
+   equal to its eager run (warps exact), the shift recovered within the
+   JAX test's bounds (2.5 px, 0.05 on the linear part), 0 host syncs;
+   ms per frame with and without the chain on the same frames and the
+   chain's torch.profiler device time (findings); the eval CLI
+   (``tools.test.main``) on the synthetic on-disk dataset with the config,
+   ``--interpolate`` and ``--aflink`` (a checkpoint the port's AFLink
+   trainer writes in 30 steps on the card) and without them, count
+   metrics printed, ``--streams 2`` refused; whether ``cv2`` imports, and
+   where it does 3 frames of ``backend='opencv'``.
 
 ``--profile`` adds, after the timed phases, a ``torch.profiler`` window
 over two replayed steps of one stream in float32 and of 8 streams in
@@ -128,7 +147,8 @@ split into forward, loss (with SimOTA), backward, and optimizer plus EMA.
 Output: the per-phase lines, then the card line and one JSON line of kernel
 results (8-stream shapes; launches from the trace of phase 6's replayed
 steps, the probe's from the probe run; ``kitti_416x1280``: the same
-kernel's error, times and bound at 8 streams of the KITTI shape), then, as
+kernel's error, times and bound at 8 streams of the KITTI shape;
+``stem.widths``: the stem at O = 24, 48 and 80), then, as
 the last line, ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -259,12 +279,12 @@ def device_kernels(fn, calls):
     launch, from torch.profiler's trace.  ``fn`` launches at least one
     kernel, so a trace with none was dropped (torch.profiler on the card
     now and then drops device events, and at times all of them): it is
-    taken again, up to 3 times."""
+    taken again, up to 5 times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
@@ -275,7 +295,7 @@ def device_kernels(fn, calls):
               and not e.name.startswith(('Memcpy', 'Memset'))]
         if ks:
             return ks
-    raise SmokeFailure('torch.profiler recorded no kernel in 3 traces')
+    raise SmokeFailure('torch.profiler recorded no kernel in 5 traces')
 
 
 def device_ms(fn, kernel, iters):
@@ -378,6 +398,95 @@ def weight_reads(n, name, regions, before, after):
           f'{n * after / 1e9:.2f} GB (slice ring)', flush=True)
 
 
+def stem_check(frm, wk, sb, oh, ow, what):
+    """The stem kernel against its plain version on one branch's raw
+    frames, with its tolerance (phase 3): one bf16 ulp after BN + SiLU,
+    plus the float32 reassociation bound 2 K 2^-24 sum|x w| |scale| of the
+    two sums (K = 36 C).  Returns the kernel's output, the largest error,
+    the largest error over its tolerance, the operations and the library
+    call's (input, weight) pair."""
+    import torch.nn.functional as F
+    from stereotracking_tpu_torch.ops import stem_cuda
+    n = frm.shape[0]
+    k = stem_cuda.focus_stem(frm, wk, sb, oh, ow)
+    p = stem_cuda.focus_stem_plain(frm, wk, sb, oh, ow).float()
+    require(k.shape == (n, oh // 2, ow // 2, wk.shape[-1]),
+            f'{what} shape {tuple(k.shape)}')
+    x = F.pad(stem_cuda.stem_input(frm, oh, ow), (2, 3, 2, 3))
+    c = x.shape[1]
+    w6 = stem_cuda.stem_hwio(wk, c)
+    mag = F.conv2d(x.abs(), w6.abs().permute(3, 2, 0, 1), stride=2)
+    mag = mag.permute(0, 2, 3, 1) * sb[0].abs()
+    tol = 2 ** -7 * p.abs() + 2 * 36 * c * 2 ** -24 * mag
+    d = (k.float() - p).abs()
+    bad = d > tol
+    require(not bool(bad.any()),
+            f'{what}: {int(bad.sum())} elements beyond tolerance, e.g. '
+            f'kernel {k.float()[bad][:4].tolist()} plain '
+            f'{p[bad][:4].tolist()} tol {tol[bad][:4].tolist()}')
+    worst = float((d / tol.clamp_min(1e-30)).max())
+    return (k, float(d.max()), worst, 2 * k.numel() * 36 * c,
+            (x, w6.permute(3, 2, 0, 1).contiguous()))
+
+
+# the stem kernel's YOLOX widths beyond the flagship's 32 (tiny, m, x):
+# seeded random weights, both branches, 8 streams of 1080p (phase 3)
+STEM_EXTRA_WIDTHS = (24, 48, 80)
+
+
+def check_stem_widths(img, disp_u16, oh, ow, iters=10):
+    """Phase 3 (widths): the stem kernel at O = 24, 48 and 80 against its
+    plain version with the same tolerance as at O = 32, on both branches'
+    8-stream frames; kernel, plain version and ``F.conv2d`` timed, the
+    bound from the bytes and operations.  Returns {'o<O>': row}."""
+    import torch
+    import torch.nn.functional as F
+    from stereotracking_tpu_torch.ops import stem_cuda
+    n = img.shape[0]
+    rows = {}
+    for o in STEM_EXTRA_WIDTHS:
+        g = torch.Generator().manual_seed(SEED + o)
+        weights = []
+        for c in (3, 1):
+            w6 = (torch.randn((6, 6, c, o), generator=g) * 0.05).to(
+                torch.bfloat16).float()
+            sb = torch.stack([torch.rand((o,), generator=g) + 0.5,
+                              torch.randn((o,), generator=g)])
+            weights.append((stem_cuda.stem_matrix(w6).to(img.device),
+                            sb.to(img.device).contiguous()))
+        outs, xs, err, worst, ops = [], [], 0.0, 0.0, 0
+        for frm, (wk, sb) in zip((img, disp_u16), weights):
+            k, e, wst, op, x = stem_check(frm, wk, sb, oh, ow, f'stem O={o}')
+            outs.append(k)
+            xs.append(x)
+            err, worst, ops = max(err, e), max(worst, wst), ops + op
+        (wi, si), (wd, sd) = weights
+        t, by = bound(nbytes(img, disp_u16, *outs), ops, PEAK_BF16)
+        row = dict(
+            max_abs_err=err,
+            ms=time_ms(lambda: (stem_cuda.focus_stem(img, wi, si, oh, ow),
+                                stem_cuda.focus_stem(disp_u16, wd, sd, oh,
+                                                     ow)), iters),
+            plain_ms=time_ms(lambda: (
+                stem_cuda.focus_stem_plain(img, wi, si, oh, ow),
+                stem_cuda.focus_stem_plain(disp_u16, wd, sd, oh, ow)),
+                iters),
+            bound_ms=t, bound_by=by,
+            library_ms=time_ms(lambda: [F.conv2d(x, w, stride=2)
+                                        for x, w in xs], iters))
+        row['tflops'] = ops / row['ms'] * 1e-9
+        row['bound_share'] = t / row['ms']
+        rows[f'o{o}'] = row
+        print(f'kernel stem O={o} x{n}: max_abs_err {err:.6g} (largest '
+              f'|kernel - plain| / tolerance {worst:.4f})  kernel '
+              f'{row["ms"]:.4f} ms  plain {row["plain_ms"]:.4f} ms  library '
+              f'{row["library_ms"]:.4f} ms  bound {t:.4f} ms ({by}); '
+              f'{ops / 1e9:.2f} GFLOP = {row["tflops"]:.1f} TFLOP/s, '
+              f'{100 * row["bound_share"]:.1f}% of the bound', flush=True)
+        del outs, xs
+    return rows
+
+
 def check_kernels(model, frames, next_frames, device, iters=10):
     """Phase 3 at S = len(frames) streams: each kernel against its plain
     version, all timed, the depth, assignment and NMS kernels on the
@@ -424,27 +533,10 @@ def check_kernels(model, frames, next_frames, device, iters=10):
     stems, err, ops, worst = [], 0.0, 0, 0.0
     xs = []
     for frm, (wk, sb) in ((img, kw['stem']), (disp_u16, kw['disp_stem'])):
-        k = stem_cuda.focus_stem(frm, wk, sb, oh, ow)
-        p = stem_cuda.focus_stem_plain(frm, wk, sb, oh, ow).float()
-        require(k.shape == (n, oh // 2, ow // 2, wk.shape[-1]), 'stem shape')
-        x = F.pad(stem_cuda.stem_input(frm, oh, ow), (2, 3, 2, 3))
-        c = x.shape[1]
-        w6 = stem_cuda.stem_hwio(wk, c)
-        xs.append((x, w6.permute(3, 2, 0, 1).contiguous()))
-        mag = F.conv2d(x.abs(), w6.abs().permute(3, 2, 0, 1), stride=2)
-        mag = mag.permute(0, 2, 3, 1) * sb[0].abs()
-        tol = 2 ** -7 * p.abs() + 2 * 36 * c * 2 ** -24 * mag
-        d = (k.float() - p).abs()
-        bad = d > tol
-        require(not bool(bad.any()),
-                f'stem: {int(bad.sum())} elements beyond tolerance, e.g. '
-                f'kernel {k.float()[bad][:4].tolist()} plain '
-                f'{p[bad][:4].tolist()} tol {tol[bad][:4].tolist()}')
-        err = max(err, float(d.max()))
-        worst = max(worst, float((d / tol.clamp_min(1e-30)).max()))
-        ops += 2 * k.numel() * 36 * c
+        k, e, wst, op, x = stem_check(frm, wk, sb, oh, ow, 'stem')
+        err, worst, ops = max(err, e), max(worst, wst), ops + op
+        xs.append(x)
         stems.append(k)
-    del mag, tol, d, bad, p
     print(f'stem x{n}: largest |kernel - plain| / tolerance {worst:.4f}',
           flush=True)
     record('stem', err,
@@ -1140,29 +1232,38 @@ def trace_job(tracker, frames, ids, want, results, what):
                 results=results, what=what)
 
 
-def trace_launches(tracker, frames, ids, want, results, what):
+def trace_launches(tracker, frames, ids, want, results, what, tries=3):
     """The main path's launches: ``tracker`` reset and its steps replayed
     over ``frames`` with frame ids ``ids`` under ``torch.profiler``, the
     wrappers' counts set to 0 just before and read just after.  The
     hand-written kernels in the trace must be ``want`` per step (stage 3's
     entry kernel as often as its chain kernel); the wrappers' counts must
     stay 0 (each step a replay); ids and validity must equal ``results``,
-    the timed run's.  Returns the launches in the trace."""
+    the timed run's.  A trace whose kernel counts fall short is taken
+    again, up to ``tries`` times: torch.profiler on the card drops device
+    events now and then, more so after the training phase.  Returns the
+    launches in the trace."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from stereotracking_tpu_torch import _kernels
-    tracker.reset()
-    torch.cuda.synchronize()
-    _kernels.reset_launch_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        got = [tracker.track_raw(*f, i) for f, i in zip(frames, ids)]
+    for attempt in range(1, tries + 1):
+        tracker.reset()
         torch.cuda.synchronize()
-    require_replayed(f'{what} (traced)')
-    keys = [(e.key, e.count) for e in prof.key_averages()]
-    seen = {name: sum(c for k, c in keys if sym in k)
-            for name, sym in TRACE_KERNELS.items()}
-    entry = sum(c for k, c in keys if 'stage3_entry_kernel' in k)
+        _kernels.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            got = [tracker.track_raw(*f, i) for f, i in zip(frames, ids)]
+            torch.cuda.synchronize()
+        require_replayed(f'{what} (traced)')
+        keys = [(e.key, e.count) for e in prof.key_averages()]
+        seen = {name: sum(c for k, c in keys if sym in k)
+                for name, sym in TRACE_KERNELS.items()}
+        entry = sum(c for k, c in keys if 'stage3_entry_kernel' in k)
+        short = [n for n, per in want.items() if seen[n] < per * len(frames)]
+        if not short or attempt == tries:
+            break
+        print(f'launches {what}: trace {attempt} holds {seen}, short of '
+              f'{short}: taken again', flush=True)
     require(entry == seen['stage3'], f'{what}: {entry} stage-3 entry '
             f'kernels beside {seen["stage3"]} chain kernels in the trace')
     require_launches(seen, want, len(frames), f'{what} (trace)')
@@ -1173,7 +1274,7 @@ def trace_launches(tracker, frames, ids, want, results, what):
                     f'timed run')
     print(f'launches {what}: {len(frames)} replayed steps in a '
           f'torch.profiler trace: {seen} (wrappers: 0; ids equal to the '
-          f'timed run)', flush=True)
+          f'timed run; trace {attempt} of up to {tries})', flush=True)
     return seen
 
 
@@ -1192,21 +1293,25 @@ def prime(tracker, img, disp, n_streams):
 
 def eager_steps(module, cfg, steps, device):
     """The same steps eagerly (``predict_frames_batched`` from fresh
-    states, frame ids t), each synchronised: (results, ms per step)."""
+    states, and a fresh camera-motion state where ``cfg.cmc`` asks for one,
+    frame ids t), each synchronised: (results, ms per step)."""
     import torch
     from stereotracking_tpu_torch.models.mot import (predict_frames_batched,
                                                      preprocess_raw)
     from stereotracking_tpu_torch.models.preprocessor import padded_shape
-    from stereotracking_tpu_torch.parallel.multistream import \
-        init_stream_states
-    states = init_stream_states(cfg, steps[0][0].shape[0], device)
+    from stereotracking_tpu_torch.models.mot import init_cmc_state
+    from stereotracking_tpu_torch.models.tracker import init_state
+    n = steps[0][0].shape[0]
+    states = init_state(cfg.tracker, device, n)
+    cmc = None if cfg.cmc is None else init_cmc_state(cfg.cmc, device, n)
     results, per_step = [], []
     for t, (img, disp) in enumerate(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         inputs = preprocess_raw(img, disp, *padded_shape(*img.shape[1:3]))
         states, r = predict_frames_batched(module, states, inputs,
-                                           [t] * img.shape[0], cfg)
+                                           [t] * n, cfg, cmc=cmc,
+                                           cmc_frame=img)
         torch.cuda.synchronize()
         per_step.append((time.perf_counter() - t0) * 1e3)
         results.append(r)
@@ -1304,10 +1409,12 @@ def run_slice(model, frames, device):
 def run_mixed(model, frames, device):
     """Phase 5b: backend mixes over 2 frames each.  One the JAX builder
     accepts: the stem and stage-1 kernels with stage 2 on the float32
-    modules.  And a widen-0.25 config (seeded random weights) with every
-    stage 'auto': the stem kernel (O = 16) hands over to the float32 stage
-    1, whose kernel is built for C = 32 only, and the builder warns that
-    'auto' moved stage 1 to the modules (stage 2 follows it there)."""
+    modules.  And widen-0.25, 0.375 and 0.75 configs (seeded random
+    weights) with every stage 'auto': the stem kernel (O = 16, 24, 48)
+    hands over to the float32 stage 1, whose kernel is built for C = 32
+    only, and the builder warns that 'auto' moved stage 1 to the modules
+    (and stage 2, where its own dims would move it too; it follows stage 1
+    there anyway)."""
     import torch
     from stereotracking_tpu_torch import _kernels
     from stereotracking_tpu_torch.apis.builder import build_mot_config
@@ -1318,13 +1425,23 @@ def run_mixed(model, frames, device):
     mixed = flagship_cfg()['model']
     mixed.update(stem_backend='cuda', stage1_backend='cuda',
                  stage2_backend='torch')
-    narrow = flagship_cfg()['model']
-    narrow['detector']['backbone']['widen_factor'] = 0.25
+    def widened(widen):
+        m = flagship_cfg()['model']
+        m['detector']['backbone']['widen_factor'] = widen
+        return m
+
+    stem_only = ('cuda', 'torch', 'torch', 'torch')
     for what, cfg, module, backends, moved in (
             ('stem + stage-1 kernels, stage 2-3 modules', mixed,
              model.module, ('cuda', 'cuda', 'torch', 'torch'), ()),
-            ("widen 0.25, all 'auto'", narrow, None,
-             ('cuda', 'torch', 'torch', 'torch'), ('stage1',))):
+            ("widen 0.25, all 'auto'", widened(0.25), None, stem_only,
+             ('stage1',)),
+            # YOLOX-tiny and -m: the stem kernel at O = 24 and 48; stages 1
+            # and 2 are not built for their widths (ROADMAP Queue 3 item 1)
+            ("widen 0.375, all 'auto'", widened(0.375), None, stem_only,
+             ('stage1', 'stage2')),
+            ("widen 0.75, all 'auto'", widened(0.75), None, stem_only,
+             ('stage1', 'stage2'))):
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter('always')
             mot = build_mot_config(cfg, device)
@@ -2060,6 +2177,9 @@ def run_kitti(device, card):
           flush=True)
     res, _ = check_kernels(model, [f[0] for f in streams],
                            [f[1] for f in streams], device)
+    img, disp_u16 = to_card([f[0] for f in streams], device)
+    widths = check_stem_widths(img, disp_u16, oh, ow)
+    del img, disp_u16
 
     one = [to_card([f], device) for f in resized_frames(
         N_FRAMES, KITTI_H, KITTI_W, scale, 500)]
@@ -2093,7 +2213,9 @@ def run_kitti(device, card):
     apart = [k for k in counts
              if got['sequential'][0][k] != got['streams 2'][0][k]]
     require(not apart, f'KITTI eval: {apart} differ between the loops')
-    return json_rows(res), [r1['job'], r8['job']]
+    rows = json_rows(res)
+    rows['stem']['widths'] = json_rows(widths)
+    return rows, [r1['job'], r8['job']]
 
 
 def path_kernels(model, raw, device, what):
@@ -2304,6 +2426,249 @@ def profile_train(device):
     return split
 
 
+
+# ------------------------------------------------------- camera motion ----
+
+CMC_CONFIG = os.path.join(REPO, 'configs', 'mot', 'ocsort',
+                          'yolox_s_ocsort_monocular_cmc.py')
+CMC_FRAMES = 8
+CMC_SHIFT = (-8, 15)     # (dy, dx) px a frame the scene moves in the image
+# the JAX test's bounds on a recovered camera motion (tests/test_gmc.py):
+# translation within 2.5 px, the linear part within 0.05 of the identity
+CMC_T_TOL, CMC_R_TOL = 2.5, 0.05
+
+
+def panning_frames(n, h, w, shift, seed):
+    """n raw (img, disp) frames of a camera panning over a scene of 8-px
+    random blocks with make_frames' bright rectangles: frame t shows the
+    scene moved by t * ``shift`` (dy, dx) px; the disparity (a monocular
+    config ignores it) valid and constant."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    pad = max(abs(shift[0]), abs(shift[1])) * n + 8
+    hh, ww = h + 2 * pad, w + 2 * pad
+    base = rng.randint(0, 256, (hh // 8 + 1, ww // 8 + 1, 3), np.uint8)
+    scene = np.repeat(np.repeat(base, 8, 0), 8, 1)[:hh, :ww].copy()
+    for _ in range(12):
+        y, x = rng.randint(0, hh - 40), rng.randint(0, ww - 60)
+        scene[y:y + 30, x:x + 40] = rng.randint(100, 255, 3, np.uint8)
+    disp = np.full((h, w), 320, np.uint16)
+    frames = []
+    for t in range(n):
+        y0, x0 = pad - t * shift[0], pad - t * shift[1]
+        frames.append((np.ascontiguousarray(scene[y0:y0 + h, x0:x0 + w]),
+                       disp))
+    return frames
+
+
+def cmc_chain_graph(cmc, img, device):
+    """The camera-motion chain of one stream (``mot.camera_warp``: gray,
+    histogram, block matching, the RANSAC draws and fits) captured alone
+    in a CUDA graph over input buffers: (graph, img buffer, frame-id
+    buffer, its state, its (warp, on) outputs)."""
+    import torch
+    from stereotracking_tpu_torch.models.mot import (camera_warp,
+                                                     init_cmc_state)
+    buf = img.clone()
+    fid = torch.zeros(1, dtype=torch.int32, device=device)
+    state = init_cmc_state(cmc, device, 1)
+    side = torch.cuda.Stream(device=device)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        camera_warp(cmc, state, buf, fid)                    # warm-up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = camera_warp(cmc, state, buf, fid)
+    state.prev.zero_()
+    state.has_prev.fill_(False)
+    return graph, buf, fid, state, out
+
+
+def check_cmc_chain(cmc, frames, device):
+    """The chain replayed from its own graph against ``camera_warp`` run
+    eagerly on the same frames: warps and flags exact, 0 host syncs in a
+    replay; the warp on from frame 1 and the known shift recovered within
+    the JAX test's bounds.  Returns the warps and the chain's device time
+    per frame (torch.profiler, 4 replays)."""
+    import torch
+    from stereotracking_tpu_torch.models.mot import (camera_warp,
+                                                     init_cmc_state)
+    # the graph writes its state's tensors: they stay referenced here
+    graph, buf, fid, state, out = cmc_chain_graph(cmc, frames[0][0], device)
+    eager = init_cmc_state(cmc, device, 1)
+    warps = []
+    for t, (img, _) in enumerate(frames):
+        buf.copy_(img)
+        fid.fill_(t)
+        graph.replay()
+        w_r, on_r = out[0].clone(), out[1].clone()
+        w_e, on_e = camera_warp(cmc, eager, img, [t])
+        require(torch.equal(w_r, w_e) and torch.equal(on_r, on_e),
+                f'cmc frame {t}: replayed warp {w_r.tolist()} '
+                f'({on_r.tolist()}) != eager {w_e.tolist()} '
+                f'({on_e.tolist()})')
+        require(bool(on_r[0]) == (t > 0), f'cmc frame {t}: warp on '
+                f'{on_r.tolist()}')
+        warps.append(w_r[0].cpu())
+    dy, dx = CMC_SHIFT
+    for t, w in enumerate(warps[1:], 1):
+        dt = (float(w[0, 2]) - dx, float(w[1, 2]) - dy)
+        dr = float((w[:, :2] - torch.eye(2)).abs().max())
+        require(max(map(abs, dt)) <= CMC_T_TOL and dr <= CMC_R_TOL,
+                f'cmc frame {t}: warp {w.tolist()} against the applied '
+                f'shift (dx, dy) = {(dx, dy)}')
+    syncs = count_syncs(graph.replay)
+    require(syncs == 0, f'cmc chain: {syncs} host syncs in a replay')
+    ks = device_kernels(graph.replay, 4)
+    us = sum(t for _, t in ks) / 4
+    del graph, state
+    print(f'cmc chain (one stream, {tuple(frames[0][0].shape[1:3])}): '
+          f'replayed == eager (warps and flags exact) over {len(frames)} '
+          f'frames; 0 host syncs; applied shift (dx, dy) = {(dx, dy)} px, '
+          f'recovered ' + ', '.join(
+              f'({float(w[0, 2]):.3f}, {float(w[1, 2]):.3f})'
+              for w in warps[1:]) + f'; device time {us / 1e3:.4f} ms per '
+          f'frame in {len(ks) / 4:.0f} kernels (torch.profiler, kernels of '
+          f'one replay)', flush=True)
+    return warps, us / 1e3
+
+
+def cmc_eval_cli(module, device, card):
+    """The eval CLI (``tools.test.main``) with the CMC config on the
+    synthetic on-disk dataset (``tests/synthetic_dataset``: 2 videos x 8
+    frames of 544x960), ``module``'s weights through a ``.pth``, with
+    ``--interpolate`` and ``--aflink`` (a checkpoint that the port's AFLink
+    trainer writes in 30 steps on the card), and once without them; the
+    count metrics printed."""
+    import tempfile
+
+    import torch
+    from stereotracking_tpu_torch.tools import test as cli
+    from stereotracking_tpu_torch.train.train_aflink import (save_aflink,
+                                                             train_aflink)
+    sys.path.insert(0, os.path.join(REPO, 'tests'))
+    from synthetic_dataset import write_airdrone_dataset
+    keys = ('CLR_TP', 'CLR_FP', 'CLR_FN', 'IDSW', 'Frag', 'MOTA', 'IDF1')
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        sd, acc = train_aflink(seed=SEED, steps=30, batch=64, log_every=0,
+                               device=device)
+        pt = os.path.join(tmp, 'aflink.pt')
+        save_aflink(pt, sd)
+        print(f'cmc eval: AFLink trained 30 steps of batch 64 on {device} '
+              f'in {time.perf_counter() - t0:.1f} s, held-out accuracy '
+              f'{acc:.3f}', flush=True)
+        pth = os.path.join(tmp, 'mono.pth')
+        torch.save({'state_dict': {f'detector.{k}': v.cpu() for k, v in
+                                   module.state_dict().items()}}, pth)
+        data = os.path.join(tmp, 'data')
+        write_airdrone_dataset(data, n_videos=2, n_frames=8, h=544, w=960)
+        cfg = os.path.join(tmp, 'cmc.py')
+        with open(cfg, 'w') as f:
+            f.write(f"_base_ = ['{CMC_CONFIG}']\n"
+                    f"img_scale = (544, 960)\n"
+                    f"test_dataloader = dict(dataset=dict(data_root="
+                    f"'{data}/', ann_file='annotations.json', "
+                    f"img_prefix=''))\n")
+        got = {}
+        for what, flags in (('--interpolate --aflink',
+                             ['--interpolate', '--aflink', pt]),
+                            ('no post-processing', [])):
+            m = cli.main([cfg, '--device', str(device), '--checkpoint', pth,
+                          '--work-dir', os.path.join(tmp, 'w'), *flags])
+            got[what] = m
+            require(m['CLR_TP'] + m['CLR_FN'] > 0, f'cmc eval {what}: {m}')
+            print(f'cmc eval ({card}) {what}: ' + ', '.join(
+                f'{k} {m[k]:.4f}' for k in keys) + f', fps {m["fps"]:.1f}',
+                flush=True)
+        try:
+            cli.main([cfg, '--device', str(device), '--streams', '2',
+                      '--work-dir', os.path.join(tmp, 'w')])
+        except NotImplementedError as e:
+            print(f'cmc eval: --streams 2 refused: {e}', flush=True)
+        else:
+            raise SmokeFailure('cmc eval: --streams 2 took a CMC config')
+    return got
+
+
+def cmc_opencv(model, raw, device):
+    """Whether OpenCV imports here; where it does, 3 frames of the
+    ``backend='opencv'`` route (the host's Farneback warp fed into the
+    replayed step), outputs finite, warp found from frame 1."""
+    import torch
+    from stereotracking_tpu_torch.models.mot import OCSORTDisparity
+    try:
+        import cv2
+    except ImportError as e:
+        print(f'cmc opencv: cv2 does not import on this machine ({e}); '
+              f"the backend='opencv' route was not run", flush=True)
+        return None
+    cfg = model.cfg._replace(cmc=model.cfg.cmc._replace(backend='opencv'))
+    one = OCSORTDisparity(cfg, module=model.module, device=device)
+    ms = []
+    for t, (img, disp) in enumerate(raw[:3]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = one.track_raw(img, disp, t)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        check_result(r, (), cfg.tracker.num_dets, f'cmc opencv {t}')
+    warp, on = one._host_warp(raw[3][0], 3)
+    print(f'cmc opencv: cv2 {cv2.__version__}; 3 frames replayed, ms per '
+          f'frame (host warp included) {[round(x, 2) for x in ms]}; the '
+          f'host warp of frame 3: on {bool(on[0])}, '
+          f'{warp[0].round(3).tolist()}', flush=True)
+    return ms
+
+
+def run_cmc(device, card):
+    """Phase 13: the moving-camera config (``yolox_s_ocsort_monocular_cmc.
+    py``, ``backend='device'``) at 1080p through ``init_model`` ->
+    ``track_raw``: 8 frames of a camera panning by a known shift, the step
+    replayed from its CUDA graph (no wrapper launch), 0 host syncs, equal to
+    the eager step (ids exact); the chain alone replayed equal to eager
+    (warps exact) and the shift recovered; ms per frame with and without
+    the camera-motion chain on the same frames and the chain's device time
+    (findings); the eval CLI with ``--interpolate`` and ``--aflink``; and
+    the opencv route where cv2 imports.  Returns the trace job."""
+    from stereotracking_tpu_torch.apis.inference import init_model
+    from stereotracking_tpu_torch.models.mot import OCSORTDisparity
+    t_start = time.perf_counter()
+    model = init_model(CMC_CONFIG, device=device)
+    set_head_bias(model.module, HEAD_BIAS)
+    cmc = model.cfg.cmc
+    require(cmc is not None and cmc.backend == 'device'
+            and model.cfg.detector.backbone == 'single',
+            f'cmc config: {model.cfg.cmc}, {model.cfg.detector.backbone}')
+    raw = panning_frames(CMC_FRAMES, FRAME_H, FRAME_W, CMC_SHIFT, 1300)
+    frames = [to_card([f], device) for f in raw]
+    want = no_stage_kernels(model.cfg)
+    r = replayed_run(model, frames, 0, 'cmc one stream', want)
+    plain = OCSORTDisparity(model.cfg._replace(cmc=None),
+                            module=model.module, device=device)
+    r0 = replayed_run(plain, frames, 0, 'cmc off one stream', want)
+    n_ids = {i for res in r['results']
+             for i in res.track_ids[res.track_valid].tolist()}
+    require(len(n_ids) > 0, 'cmc: no track id assigned')
+    _, chain_ms = check_cmc_chain(cmc, frames, device)
+    print(f'cmc ({card}): {CMC_FRAMES} frames of {FRAME_H}x{FRAME_W}, '
+          f'{len(n_ids)} track ids; replayed ms per frame with the chain '
+          f'{r["ms"]:.2f}, without {r0["ms"]:.2f} (medians of frames '
+          f'2-{CMC_FRAMES - 1}, the same frames and weights); eager '
+          f'{r["eager_ms"]:.2f} and {r0["eager_ms"]:.2f}; the chain\'s '
+          f'device time {chain_ms:.4f} ms; host syncs per step {r["syncs"]};'
+          f' replayed == eager (ids exact, boxes within {r["err"]:.3g} px)',
+          flush=True)
+    cmc_eval_cli(model.module, device, card)
+    cmc_opencv(model, raw, device)
+    print(f'cmc: {time.perf_counter() - t_start:.1f} s', flush=True)
+    # phase 10 counts the launches over the first 3 steps: the chain's many
+    # small kernels a step make a long trace slow to read
+    return {k: v[:3] if k in ('frames', 'ids', 'results') else v
+            for k, v in r['job'].items()}
+
+
 def run_probe():
     """Phase 11: the stage-1 kernel's variants at 8 streams."""
     from stereotracking_tpu_torch import _kernels
@@ -2352,55 +2717,78 @@ def main():
     _kernels.library()
     print(f'build: {path.name} in {time.perf_counter() - t0:.1f} s '
           f'(nvcc {_kernels.build_seconds})', flush=True)
+    laps = [time.perf_counter()]
+
+    def lap(what):
+        """Seconds since the last lap, printed: where the run's time goes."""
+        laps.append(time.perf_counter())
+        print(f'time: {what} {laps[-1] - laps[-2]:.1f} s', flush=True)
+
     for name, lines in _kernels.ptxas_usage(
             sorted({KERNELS[k][0] for k in REDESIGNED})).items():
         for line in lines:
             print(f'ptxas {name}: {line}', flush=True)
 
+    lap('ptxas')
     model = build_flagship(device)
     two = [make_frames(2, FRAME_H, FRAME_W, 100 + s) for s in range(N_STREAMS)]
     streams, nexts = [f[0] for f in two], [f[1] for f in two]
     _, trace_one = check_kernels(model, streams[:1], nexts[:1], device)
     res, trace = check_kernels(model, streams, nexts, device)
+    img, disp_u16 = to_card(streams, device)
+    res['stem']['widths'] = check_stem_widths(
+        img, disp_u16, *padded_shape(FRAME_H, FRAME_W))
     # the flagship only: the depth kernel also on synthetic boxes at every
     # pyramid level and through every vote branch
-    img, disp_u16 = to_card(streams, device)
     res['depth']['synthetic'], depth_trace = check_depth(
         model.cfg, img, disp_u16, *padded_shape(FRAME_H, FRAME_W), device,
         10)
     del two, nexts, img, disp_u16
+    lap('kernels (phase 3)')
     check_small_reference(model, device)
     slice_frames = make_frames(N_FRAMES, FRAME_H, FRAME_W, SEED)
     slice_job = run_slice(model, slice_frames, device)
+    lap('reference and slice (phases 4-5)')
     mixed_jobs = run_mixed(model, slice_frames[:2], device)
+    lap('mixed backends (phase 5)')
     f32 = run_multistream(model, device)
     bf16 = run_bf16(model, device, f32)
     replay_cost(f32['mot'].tracker, device, N_STREAMS)
     replay_cost(f32['mot'].tracker, device, 1)
+    lap('multi-stream and bf16 (phases 6-7)')
     run_eval(model, device)
+    lap('eval (phase 8)')
     state, batches = run_train(device)
     check_train_on_cpu(device)
     serve_export(state, device)
+    lap('train (phase 9)')
     del state
     other_rows, other_jobs = run_other_configs(device, batches)
     del batches
+    lap('other configs (phase 12)')
+    other_jobs.append(run_cmc(device, card))
+    lap('moving camera (phase 13)')
     # the main paths' launches, from torch.profiler traces of their replayed
     # steps, after the timed phases: a profiler session slows the host work
     # of the process after it
+    # the depth, JV and NMS kernels' torch.profiler figures, after the
+    # timed phases (a profiler session slows the host work of the process
+    # after it) and before phase 10's traces and --profile's windows (after
+    # many sessions the profiler drops device events)
+    trace_one()
+    trace()
+    depth_trace()
+    lap('kernel device times')
     for job in [slice_job] + mixed_jobs + [bf16['job']] + other_jobs:
         trace_launches(**job)
+    counts = trace_launches(**f32['job'])
+    del slice_job, mixed_jobs
     if '--profile' in sys.argv[1:]:
         for job in other_jobs:          # the traced steps' ids, continued
             n = len(job['frames'])
             profile_steps(lambda t, job=job, n=n: job['tracker'].track_raw(
                 *job['frames'][t], [n + t] * N_STREAMS
                 if isinstance(job['ids'][0], list) else n + t), job['what'])
-    del other_jobs
-    counts = trace_launches(**f32['job'])
-    del slice_job, mixed_jobs
-    if '--profile' in sys.argv[1:]:
-        # after the timed phases: a profiler session slows the host work of
-        # the process after it
         one = [to_card([f], device) for f in slice_frames[:2]]
         profile_steps(lambda t: model.track_raw(one[t][0][0], one[t][1][0],
                                                 N_FRAMES + 1 + t),
@@ -2410,13 +2798,10 @@ def main():
                 *f32['steps'][t], [N_STEPS + 1 + t] * N_STREAMS),
                 f'8 streams {what}')
         del one
-    del f32, bf16
-    # the depth kernel's torch.profiler figures, after the timed phases: a
-    # profiler session slows the host work of the process after it
-    trace_one()
-    trace()
-    depth_trace()
+    del other_jobs, f32, bf16
+    lap('launch traces (phase 10)')
     probe_launches, probe, prod = run_probe()
+    lap('probe (phase 11)')
     if '--profile' in sys.argv[1:]:
         # last: a trace this large left the profiler dropping every device
         # event in the sessions after it

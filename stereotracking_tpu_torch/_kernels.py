@@ -35,6 +35,7 @@ KERNELS = ('stem', 'stage1', 'stage2', 'stage3', 'depth', 'assignment',
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 _lib = None
 build_seconds = None      # wall time of the last nvcc build (None: cached)
+_ptxas_logs: Dict[str, str] = {}   # source -> its ptxas -v output, as built
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -116,8 +117,10 @@ def build() -> Path:
     tag = f'{out.stem}.{os.getpid()}'
     objs = [BUILD_DIR / f'{tag}.{p.stem}.o' for p in cu]
     t0 = time.perf_counter()
-    cmds = [[_nvcc(), *NVCC_FLAGS, '-c', '-o', str(o), str(p)]
-            for p, o in zip(cu, objs)]
+    # -Xptxas -v only reports (registers, shared memory, spills): the code
+    # is the same, and ptxas_usage reads the reports without a recompile
+    cmds = [[_nvcc(), *NVCC_FLAGS, '-Xptxas', '-v', '-c', '-o', str(o),
+             str(p)] for p, o in zip(cu, objs)]
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for c in cmds]
@@ -139,32 +142,33 @@ def build() -> Path:
         for o in objs:
             o.unlink(missing_ok=True)
     os.replace(tmp, out)
+    _ptxas_logs.update((p.name, log) for p, log in zip(cu, logs))
     build_seconds = time.perf_counter() - t0
     return out
 
 
 def ptxas_usage(sources) -> Dict[str, list]:
-    """Compile the named sources (file names under ``csrc/``, or paths
-    ending in them) once more with ``-Xptxas -v``, all at once, and return
-    each one's ptxas lines on entry functions, registers, shared memory and
-    spills."""
+    """Each named source's (file names under ``csrc/``, or paths ending in
+    them) ptxas lines on entry functions, registers, shared memory and
+    spills: from this process's build where it built them, else from a
+    compile with ``-Xptxas -v``, all at once."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     names = [Path(s).name for s in sources]
-    objs = [BUILD_DIR / f'ptxas.{os.getpid()}.{Path(n).stem}.o' for n in names]
+    logs = {n: _ptxas_logs[n] for n in names if n in _ptxas_logs}
+    todo = [n for n in names if n not in logs]
+    objs = [BUILD_DIR / f'ptxas.{os.getpid()}.{Path(n).stem}.o' for n in todo]
     procs = [subprocess.Popen(
         [_nvcc(), *NVCC_FLAGS, '-Xptxas', '-v', '-c', '-o', str(o),
          str(CSRC / n)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for n, o in zip(names, objs)]
-    out = {}
-    for n, o, p in zip(names, objs, procs):
-        log = p.communicate()[0]
+        text=True) for n, o in zip(todo, objs)]
+    for n, o, p in zip(todo, objs, procs):
+        logs[n] = p.communicate()[0]
         o.unlink(missing_ok=True)
         if p.returncode != 0:
-            raise RuntimeError(f'nvcc -Xptxas -v {n} failed:\n{log}')
-        out[n] = [line.strip() for line in log.splitlines()
-                  if any(k in line for k in ('Compiling entry', 'registers',
-                                             'spill'))]
-    return out
+            raise RuntimeError(f'nvcc -Xptxas -v {n} failed:\n{logs[n]}')
+    return {n: [line.strip() for line in logs[n].splitlines()
+                if any(k in line for k in ('Compiling entry', 'registers',
+                                           'spill'))] for n in names}
 
 
 def library() -> ctypes.CDLL:

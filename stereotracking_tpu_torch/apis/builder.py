@@ -30,6 +30,7 @@ from ..models.detector import DetectorConfig, YOLOXDetector
 from ..models.mot import MOTConfig, OCSORTDisparity
 from ..models.tracker import TrackerConfig
 from ..ops import stage1_cuda, stage2_cuda, stage3_cuda, stem_cuda
+from ..ops.gmc import GMCConfig
 from ..utils.devices import checked_device
 
 _BACKBONE_KINDS = {
@@ -146,8 +147,14 @@ def build_mot_config(model_cfg: Dict[str, Any], device='cuda') -> MOTConfig:
     kind = _strip(model_cfg.get('type', 'OCSORT_Disparity'))
     if kind not in ('OCSORT_Disparity', 'OCSORT'):
         raise ValueError(f'unsupported model type {kind!r}')
+    cmc = None
     if model_cfg.get('cmc'):
-        raise NotImplementedError('camera-motion compensation is not ported')
+        # cmc=dict(backend='device'|'opencv', step=..., ransac_thr=..., ...)
+        cmc_cfg = model_cfg['cmc']
+        cmc = (GMCConfig(**cmc_cfg) if isinstance(cmc_cfg, dict)
+               else GMCConfig())
+        if cmc.backend not in ('device', 'opencv'):
+            raise ValueError(f'unknown cmc backend {cmc.backend!r}')
     device = checked_device(device)
     depth = _ALIASES.get(model_cfg.get('depth_backend', 'auto'),
                          model_cfg.get('depth_backend', 'auto'))
@@ -167,6 +174,7 @@ def build_mot_config(model_cfg: Dict[str, Any], device='cuda') -> MOTConfig:
         depth_crop=model_cfg.get('depth_crop', 96),
         depth_mode=depth_mode,
         reuse_det_depth=model_cfg.get('reuse_det_depth', True),
+        cmc=cmc,
         disp_fixed_point=model_cfg.get('disp_fixed_point', True),
         backends=resolve_stage_backends(model_cfg, device.type))
 

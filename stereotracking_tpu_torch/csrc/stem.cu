@@ -47,6 +47,17 @@
 //   then 16-byte stores in which neighbouring lanes write neighbouring
 //   addresses (a tile row of 16 pixels is 16 O bytes contiguous).
 //
+// Widths: O is any multiple of 8 up to 80 that the launch switch lists
+// (8, 16, 24, 32, 48, 64, 80: YOLOX nano to x).  A pixel holds CP = O / 8
+// chunks.  The 8 pixels of one epilogue store must hit 8 different 16-byte
+// bank groups: for CP a power of two the chunks are XOR-swizzled by pixel;
+// an odd CP spreads them by itself (CP * px mod 8 is a permutation); an
+// even CP that is no power of two (6, 10) gets a pixel pitch of CP + 1
+// chunks, odd again.  The tile is read back in address order, so those
+// reads are conflict-free whatever the layout.  At O = 80 the block needs
+// 57 KB of shared memory, above the 48 KB a static allocation may take,
+// so it is all dynamic.
+//
 // Accumulation: the tensor cores add the 16 products of one m16n8k16 step
 // and the running sum with at least float32's precision per addition
 // (products of bf16 operands are exact), so the sum over K differs from the
@@ -84,12 +95,28 @@ __device__ __forceinline__ bf16 preprocess(uint16_t r) {
                            __fdiv_rn(static_cast<float>(r), 16.0f));
 }
 
-// chunk index XOR key of pixel px in a tile of CP 16-byte chunks per pixel:
-// the 8 pixels of one store instruction land in different banks
+// The per-warp output tile: 16 pixels of CP 16-byte chunks each, at a
+// pitch of PITCH chunks per pixel; slot(px, j) is where chunk j of pixel px
+// lies within its pixel, an involution, so slot(px, slot(px, j)) == j.
+// The 8 pixels of one store instruction land in different bank groups.
 template <int CP>
-__device__ __forceinline__ int swz(int px) {
-  return ((px * CP) >> 3) & (CP - 1);
-}
+struct Tile {
+  static constexpr bool POW2 = (CP & (CP - 1)) == 0;
+  static constexpr int PITCH = (POW2 || CP % 2) ? CP : CP + 1;
+  __device__ __forceinline__ static int slot(int px, int j) {
+    return POW2 ? j ^ (((px * CP) >> 3) & (CP - 1)) : j;
+  }
+};
+
+template <int C, int O>
+struct Smem {
+  using D = Dims<C>;
+  static constexpr int PATCH = 0;
+  static constexpr int WT = PATCH + (PH * PW * C * 2 + 15) / 16 * 16;
+  static constexpr int TILE = WT + (O * D::BPITCH * 2 + 15) / 16 * 16;
+  static constexpr int SB = TILE + WARPS * 16 * Tile<O / 8>::PITCH * 16;
+  static constexpr int BYTES = SB + 2 * O * 4;
+};
 
 template <typename T, int C, int O>
 __global__ void __launch_bounds__(THREADS)
@@ -97,12 +124,16 @@ focus_stem_kernel(const T* __restrict__ frame, int h, int w, int hout,
                   int wout, const bf16* __restrict__ wk,
                   const float* __restrict__ sb, bf16* __restrict__ out) {
   using D = Dims<C>;
+  using L = Smem<C, O>;
   constexpr int CP = O / 8;   // 16-byte chunks per output pixel
   constexpr int NT = O / 8;   // n tiles
-  __shared__ __align__(16) bf16 patch[PH * PW * C];
-  __shared__ __align__(16) bf16 wt[O * D::BPITCH];
-  __shared__ float ssb[2 * O];
-  __shared__ __align__(16) uint4 tile[WARPS][16 * CP];
+  constexpr int PITCH = Tile<CP>::PITCH;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* patch = reinterpret_cast<bf16*>(smem + L::PATCH);
+  bf16* wt = reinterpret_cast<bf16*>(smem + L::WT);
+  float* ssb = reinterpret_cast<float*>(smem + L::SB);
+  uint4* tile = reinterpret_cast<uint4*>(smem + L::TILE) +
+                (threadIdx.x >> 5) * 16 * PITCH;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int oy0 = blockIdx.y * TH, ox0 = blockIdx.x * TW;
   const int y0 = 2 * oy0 - 2, x0 = 2 * ox0 - 2;
@@ -155,7 +186,7 @@ focus_stem_kernel(const T* __restrict__ frame, int h, int w, int hout,
       koff[ks][hh] = k < D::K ? (k / (6 * C)) * PW * C + k % (6 * C) : -1;
     }
   }
-  uint32_t* tw32 = reinterpret_cast<uint32_t*>(tile[warp]);
+  uint32_t* tw32 = reinterpret_cast<uint32_t*>(tile);
 
   for (int row = warp; row < TH; row += WARPS) {
     const int oy = oy0 + row;
@@ -201,22 +232,36 @@ focus_stem_kernel(const T* __restrict__ frame, int h, int w, int hout,
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           const int px = g + 8 * hh;
-          tw32[(px * CP + (j ^ swz<CP>(px))) * 4 + t] =
+          tw32[(px * PITCH + Tile<CP>::slot(px, j)) * 4 + t] =
               pack_bf16x2(act_fast(acc[i][j][2 * hh], s0, b0),
                           act_fast(acc[i][j][2 * hh + 1], s1, b1));
         }
       }
       __syncwarp();
-      for (int c = lane; c < 16 * CP; c += 32) {
-        const int px = c / CP, ch = c % CP;
+      for (int c = lane; c < 16 * PITCH; c += 32) {
+        const int px = c / PITCH, sl = c - px * PITCH;
         const int ox = ox0 + 16 * i + px;
-        if (oy < hout && ox < wout)
-          reinterpret_cast<uint4*>(out + ((size_t)oy * wout + ox) * O)[ch] =
-              tile[warp][px * CP + (ch ^ swz<CP>(px))];
+        if (sl < CP && oy < hout && ox < wout)
+          reinterpret_cast<uint4*>(out + ((size_t)oy * wout + ox) *
+                                   O)[Tile<CP>::slot(px, sl)] = tile[c];
       }
       __syncwarp();
     }
   }
+}
+
+template <typename T, int C, int O>
+cudaError_t launch_o(const T* frame, dim3 grid, int h, int w, int hout,
+                     int wout, const bf16* wk, const float* sb, bf16* out,
+                     cudaStream_t stream) {
+  constexpr int bytes = Smem<C, O>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      focus_stem_kernel<T, C, O>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  focus_stem_kernel<T, C, O><<<grid, THREADS, bytes, stream>>>(
+      frame, h, w, hout, wout, wk, sb, out);
+  return cudaGetLastError();
 }
 
 template <typename T, int C>
@@ -226,26 +271,20 @@ cudaError_t launch_c(const void* frame, int n, int h, int w, int hout,
   dim3 grid((wout + TW - 1) / TW, (hout + TH - 1) / TH, n);
   const T* f = static_cast<const T*>(frame);
   switch (cout) {
-    case 8:
-      focus_stem_kernel<T, C, 8><<<grid, THREADS, 0, stream>>>(
-          f, h, w, hout, wout, wk, sb, out);
-      break;
-    case 16:
-      focus_stem_kernel<T, C, 16><<<grid, THREADS, 0, stream>>>(
-          f, h, w, hout, wout, wk, sb, out);
-      break;
-    case 32:
-      focus_stem_kernel<T, C, 32><<<grid, THREADS, 0, stream>>>(
-          f, h, w, hout, wout, wk, sb, out);
-      break;
-    case 64:
-      focus_stem_kernel<T, C, 64><<<grid, THREADS, 0, stream>>>(
-          f, h, w, hout, wout, wk, sb, out);
-      break;
+#define ST_STEM_CASE(O_)                                                  \
+  case O_:                                                                \
+    return launch_o<T, C, O_>(f, grid, h, w, hout, wout, wk, sb, out, stream);
+    ST_STEM_CASE(8)
+    ST_STEM_CASE(16)
+    ST_STEM_CASE(24)
+    ST_STEM_CASE(32)
+    ST_STEM_CASE(48)
+    ST_STEM_CASE(64)
+    ST_STEM_CASE(80)
+#undef ST_STEM_CASE
     default:
       return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
 
 }  // namespace

@@ -5,3 +5,5 @@ from .coco_metric import CocoMAPEvaluator  # noqa: F401
 from .kitti_protocol import KittiEvaluator  # noqa: F401
 from .mot_metrics import (MOTChallengeMetrics, MOTDroneMetrics,  # noqa: F401
                           MOTKittiMetrics)
+from .aflink import AFLinkModel, AppearanceFreeLink  # noqa: F401
+from .postprocess import interpolate_tracklets  # noqa: F401

@@ -8,7 +8,8 @@ field carries a leading stream axis (the port of ``jax.vmap`` over
 detections; Kalman predict on confirmed tracks; OCM association on
 confirmed tracks, then on tentative tracks; OCR on the leftovers; online
 smoothing of recovered tracks; Kalman update and bookkeeping; new tracks;
-eviction.
+eviction.  With camera-motion compensation, a warp is applied to the
+confirmed tracks' Kalman states right after the prediction.
 
 Where the JAX package branches on device (``lax.cond`` between the init
 path and the main path and for the reset at frame 0, the smoothing
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 
 from ..ops.assignment import linear_assignment_with_limit
+from ..ops.gmc import apply_warp_to_tracks
 from ..structures.bbox import (bbox_area, bbox_cxcyah_to_xyxy,
                                bbox_iou_matrix, bbox_xyxy_to_cxcyah)
 from ..utils.devices import to_device
@@ -244,26 +246,38 @@ def frame_ids_on(frame_id, n_streams: int, device) -> torch.Tensor:
 
 
 def step(state: TrackState, dets: Detections, frame_id,
-         cfg: TrackerConfig) -> Tuple[TrackState, TrackerOutput]:
+         cfg: TrackerConfig, warp: Optional[torch.Tensor] = None,
+         warp_on: Optional[torch.Tensor] = None
+         ) -> Tuple[TrackState, TrackerOutput]:
     """Advance the tracker one frame.  One stream: fields (K, ...) and
     (Nd, ...), ``frame_id`` an int or a 0-d tensor.  S streams: every field
     with a leading stream axis and ``frame_id`` S ints or an (S,) int32
     tensor (a stream at frame 0 starts afresh; each stream's ids grow by at
     least one per step or restart at 0, see ``replay_bound``).  Branch-free: both the
     init and the main path run and are selected per stream, and nothing is
-    read back to the host."""
+    read back to the host.
+
+    ``warp``: optional camera-motion affine, (2, 3) for one stream or
+    (S, 2, 3), applied to the confirmed tracks' Kalman states right after
+    the prediction, on the main path only (as the JAX ``step``); it applies
+    to the streams where ``warp_on`` ((S,) bool, or a 0-d bool for one
+    stream; all streams when not given) is set.  A stream with the warp
+    off steps bit for bit as without one."""
     if state.num_tracks.dim() == 0:
         st, out = step(add_stream_axis(state), add_stream_axis(dets),
                        frame_id if torch.is_tensor(frame_id) else [frame_id],
-                       cfg)
+                       cfg, None if warp is None else warp[None],
+                       None if warp_on is None else warp_on.reshape(1))
         return first_stream(st), first_stream(out)
     dev = state.active.device
     n_streams = state.active.shape[0]
     fid = frame_ids_on(frame_id, n_streams, dev)
     state = _select_streams(fid == 0, init_state(cfg, dev, n_streams), state)
     use_init = ~state.active.any(1) | ~dets.valid.any(1)
+    if warp is not None and warp_on is None:
+        warp_on = torch.ones(n_streams, dtype=torch.bool, device=dev)
     a = _init_path(state, dets, fid, cfg)
-    b = _main_path(state, dets, fid, cfg)
+    b = _main_path(state, dets, fid, cfg, warp, warp_on)
     return (_select_streams(use_init, a[0], b[0]),
             _select_streams(use_init, a[1], b[1]))
 
@@ -308,7 +322,7 @@ def _init_path(state, dets, fid, cfg):
     return state, out
 
 
-def _main_path(state, dets, fid, cfg):
+def _main_path(state, dets, fid, cfg, warp=None, warp_on=None):
     K, Nd = cfg.num_slots, dets.bboxes.shape[1]
     gate = dets.valid & (dets.scores > cfg.obj_score_thr) & \
         (bbox_area(dets.bboxes) > cfg.min_det_area)
@@ -325,6 +339,11 @@ def _main_path(state, dets, fid, cfg):
     pmean, pcov = kalman.predict(mean, state.cov)
     mean = torch.where(confirmed[..., None], pmean, mean)
     cov = torch.where(confirmed[..., None, None], pcov, state.cov)
+    if warp is not None:
+        # camera-motion compensation of the persistent Kalman states (not
+        # of the saved ones), where the stream's warp is on
+        mean, cov = apply_warp_to_tracks(mean, cov, warp,
+                                         confirmed & warp_on[:, None])
     state = state._replace(mean=mean, cov=cov, saved_mean=saved_mean,
                            saved_cov=saved_cov)
     track_boxes = bbox_cxcyah_to_xyxy(mean[..., :4])

@@ -31,7 +31,9 @@ import torch.nn.functional as F
 from .. import _kernels
 from ..models.layers import Focus, fold_bn
 
-STEM_WIDTHS = (8, 16, 32, 64)    # output channels the kernel is built for
+# output channels the kernel is built for: the Focus stem of every YOLOX
+# width, nano (widen 0.125: 8) to x (widen 1.25: 80)
+STEM_WIDTHS = (8, 16, 24, 32, 48, 64, 80)
 
 
 def dims_problem(o: int) -> Optional[str]:

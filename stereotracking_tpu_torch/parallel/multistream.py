@@ -12,7 +12,10 @@ and runs it eagerly on the CPU.
 
 Not ported: the device mesh (``mesh`` / ``shard_inputs``, multi-GPU stream
 sharding) and the TPU stem-pack layout (``pack_frames`` / ``track_packed*``:
-the port's stem kernel reads raw frames).
+the port's stem kernel reads raw frames).  A config with camera-motion
+compensation raises: the JAX ``MultiStreamTracker`` passes no warp and
+silently tracks such a config without it, and a batched warp would be a
+feature the reference lacks.
 """
 from __future__ import annotations
 
@@ -47,6 +50,11 @@ class MultiStreamTracker:
     def __init__(self, cfg: MOTConfig, n_streams: int,
                  module: Optional[YOLOXDetector] = None, device='cuda',
                  seed: int = 0, dtype: Optional[torch.dtype] = None):
+        if cfg.cmc is not None:
+            raise NotImplementedError(
+                'MultiStreamTracker: camera-motion compensation (cfg.cmc) '
+                'runs one stream at a time, through OCSORTDisparity; the '
+                'JAX MultiStreamTracker drops it silently')
         self.cfg = cfg
         self.n_streams = n_streams
         self.device = checked_device(device)

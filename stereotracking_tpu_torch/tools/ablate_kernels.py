@@ -67,8 +67,8 @@ ABLATIONS = {
         acc[1][j][1] += __uint_as_float(a[1][3] ^ b1);''')],
         'no_load': [('stem.cu', 'if (a >= hi) continue;',
                      'if (a >= hi || h > 0) continue;')],
-        'no_store': [('stem.cu', 'if (oy < hout && ox < wout)\n',
-                      'if (oy < hout && ox < wout && h < 0)\n')],
+        'no_store': [('stem.cu', 'if (sl < CP && oy < hout && ox < wout)\n',
+                      'if (sl < CP && oy < hout && ox < wout && h < 0)\n')],
     },
     # mma_chain.cuh, run by stages 1-3
     'chain': {

@@ -2,15 +2,19 @@
 
     python -m stereotracking_tpu_torch.tools.test CONFIG [--checkpoint PTH]
         [--work-dir DIR] [--depth-thr M] [--ignore-depth] [--max-videos N]
-        [--dump-txt] [--results-csv CSV] [--bf16] [--streams N]
-        [--stage-frames] [--cfg-options K=V ...] [--device cuda|cpu]
+        [--dump-txt] [--interpolate] [--aflink PT] [--results-csv CSV]
+        [--bf16] [--streams N] [--stage-frames] [--cfg-options K=V ...]
+        [--device cuda|cpu]
 
 Iterates the test videos frame by frame, runs the per-frame MOT step,
 streams ground truth and predictions into the MOT metrics (HOTA / CLEAR /
 Identity under the 0-``depth_thr`` m depth protocol) and COCO bbox mAP, and
 writes ``metrics.json`` (every metric plus ``fps``), the logger's
 ``scalars.jsonl``, and with the flags the MOT txt files and the per-frame
-depth CSV.  Runs on the card unless ``--device cpu``; without a card
+depth CSV.  Before scoring, ``--aflink PT`` re-links each video's
+tracklets (``evaluation.aflink``, a checkpoint of ``tools.train_aflink``)
+and then ``--interpolate`` fills their gaps (``evaluation.postprocess``),
+in the JAX CLI's order.  Runs on the card unless ``--device cpu``; without a card
 ``--device cuda`` raises.
 
 ``evaluate`` is the loop: it takes a model, a dataset object (``videos``,
@@ -27,10 +31,12 @@ batch-invariant.  Float32 keeps cuDNN.
 
 The datasets are ``MOTDispDataset`` and ``MOTKittiDataset`` (the
 ``img2`` naming).  The MOT metric is ``MOTDroneMetrics`` for every config,
-as the JAX CLI has it: both ignore ``test_evaluator``.  Not ported, and
-refused with ``NotImplementedError``: ``--interpolate``, ``--aflink``,
-``--show-dir`` / ``--show-interval`` / ``--show-errors``, ``--launcher`` /
-``--dist-*`` and the other dataset types (ROADMAP.md Queue 1 item 3).
+as the JAX CLI has it: both ignore ``test_evaluator``.  A config with
+camera-motion compensation runs in the sequential loop; ``--streams N``
+refuses it (``MultiStreamTracker`` does).  Not ported, and refused with
+``NotImplementedError``: ``--show-dir`` / ``--show-interval`` /
+``--show-errors``, ``--launcher`` / ``--dist-*`` and the other dataset
+types (ROADMAP.md Queue 1 item 3).
 """
 from __future__ import annotations
 
@@ -57,9 +63,8 @@ from ..utils.obs import build_logger
 
 NOT_PORTED = 'is not ported (ROADMAP.md Queue 1 item 3)'
 # flags of the JAX CLI that the port accepts only to refuse
-_REFUSED = ('interpolate', 'aflink', 'show_dir', 'show_interval',
-            'show_errors', 'launcher', 'dist_coordinator',
-            'dist_num_processes', 'dist_process_id')
+_REFUSED = ('show_dir', 'show_interval', 'show_errors', 'launcher',
+            'dist_coordinator', 'dist_num_processes', 'dist_process_id')
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -72,6 +77,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument('--ignore-depth', action='store_true')
     p.add_argument('--max-videos', type=int, default=None)
     p.add_argument('--dump-txt', action='store_true')
+    p.add_argument('--interpolate', action='store_true',
+                   help='tracklet gap interpolation before scoring')
+    p.add_argument('--aflink', default=None, metavar='PT',
+                   help='AFLink tracklet re-linking before scoring, with a '
+                        'checkpoint of tools.train_aflink (.pt)')
     p.add_argument('--results-csv', default=None)
     p.add_argument('--bf16', action='store_true',
                    help='bfloat16 compute for the detector layers that run '
@@ -86,9 +96,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument('--cfg-options', nargs='*', default=None)
     p.add_argument('--device', default='cuda',
                    help="'cuda' (default) or 'cpu'")
-    for flag in ('--interpolate', '--show-errors'):
-        p.add_argument(flag, action='store_true', help=NOT_PORTED)
-    for flag in ('--aflink', '--show-dir', '--show-interval', '--launcher',
+    p.add_argument('--show-errors', action='store_true', help=NOT_PORTED)
+    for flag in ('--show-dir', '--show-interval', '--launcher',
                  '--dist-coordinator', '--dist-num-processes',
                  '--dist-process-id'):
         p.add_argument(flag, default=None, help=NOT_PORTED)
@@ -306,10 +315,28 @@ def _multistream_eval(args, model, dataset, videos, img_scale, f,
     return n_frames, elapsed
 
 
+def postprocess(args, mot_metric) -> None:
+    """The tracklet post-processors of the JAX CLI's ``_finish``, in its
+    order, on each video's predictions: ``--aflink`` re-links, then
+    ``--interpolate`` fills gaps."""
+    if args.aflink:
+        from ..evaluation.aflink import AppearanceFreeLink, load_aflink
+        linker = AppearanceFreeLink(load_aflink(args.aflink),
+                                    device=getattr(args, 'device', 'cuda'))
+        for v in list(mot_metric._pred):
+            mot_metric._pred[v] = linker.link(mot_metric._pred[v])
+    if args.interpolate:
+        from ..evaluation.postprocess import interpolate_tracklets
+        for v in list(mot_metric._pred):
+            mot_metric._pred[v] = interpolate_tracklets(mot_metric._pred[v])
+
+
 def finish(args, mot_metric, coco_metric, n_frames, elapsed,
            logger=None) -> dict:
-    """Score, write ``metrics.json`` (and with ``--dump-txt`` the MOT txt
-    files), log and print; returns the metrics."""
+    """Post-process the tracklets (``postprocess``), score, write
+    ``metrics.json`` (and with ``--dump-txt`` the MOT txt files), log and
+    print; returns the metrics."""
+    postprocess(args, mot_metric)
     results = {}
     results.update(mot_metric.evaluate())
     results.update(coco_metric.evaluate())

@@ -16,7 +16,8 @@ stem and stage 1.  The single-branch tree (``backbone/stem``,
 map by the same rules, to ``backbone.stem`` / ``backbone.trunk.stem`` and
 so on.  ``train_state_to_torch`` carries a whole JAX
 ``TrainState`` (weights, momentum trace, EMA and step) to the port's
-``TrainState.load_state_dict``.
+``TrainState.load_state_dict``; ``aflink_to_state_dict`` the JAX AFLink
+linker's weights to ``evaluation.aflink.AFLinkModel``.
 """
 from __future__ import annotations
 
@@ -124,3 +125,24 @@ def train_state_to_torch(state: Any) -> Dict[str, Any]:
                                 'batch_stats': state.ema_batch_stats}),
         momentum=flax_to_state_dict({'params': trace,
                                      'batch_stats': {}}))
+
+
+def aflink_to_state_dict(variables: Dict[str, Any]
+                         ) -> Dict[str, torch.Tensor]:
+    """The JAX ``AFLinkModel``'s Flax ``variables`` (``{'params': ...}``,
+    numpy or anything ``np.asarray`` accepts) -> a ``state_dict`` for
+    ``evaluation.aflink.AFLinkModel``: conv kernels HWIO -> OIHW, ``Dense``
+    kernels (in, out) transposed to (out, in), biases as they are."""
+    params = variables.get('params', variables)
+    out = {}
+    enc = params['encoder']
+    for name in ('tconv0', 'tconv1', 'tconv2', 'tconv3', 'fusion'):
+        k = np.asarray(enc[name]['kernel'], np.float32)
+        out[f'encoder.{name}.weight'] = torch.from_numpy(
+            np.ascontiguousarray(k.transpose(3, 2, 0, 1)))
+    for name in ('fc1', 'fc2'):
+        out[f'{name}.weight'] = torch.from_numpy(np.ascontiguousarray(
+            np.asarray(params[name]['kernel'], np.float32).T))
+        out[f'{name}.bias'] = torch.from_numpy(
+            np.array(params[name]['bias'], np.float32))
+    return out

@@ -3,7 +3,7 @@
 ``resolve_stage_backends`` is a pure function of (model config, device
 type), so the CUDA-device cases run here without a card.
 Kernel support per width and depth is stated below from the kernels'
-documented limits (stem O in {8, 16, 32, 64}; stage 1 C_in = mid =
+documented limits (stem O in {8, 16, 24, 32, 48, 64, 80}; stage 1 C_in = mid =
 C_out / 2 = 32 with one block; stage 2 C_in in {32, 64}; stage 3 C_in =
 128) and held against what the resolver reads from the wrappers.  One
 mix the JAX builder accepts (stem and stage-1 kernels, stage 2 on the
@@ -45,12 +45,13 @@ KEYS = tuple(f'{s}_backend' for s in StageBackends._fields)
 SUPPORT = {
     (0.25, 0.33): (True, False, True, False),    # O 16; (32, 64, 32, 3)
     (0.25, 0.67): (True, False, True, False),    # stage 1 has 2 blocks
-    (0.375, 0.33): (False, False, False, False),  # O 24, C 48, 96, 192
-    (0.375, 0.67): (False, False, False, False),
+    (0.375, 0.33): (True, False, False, False),  # O 24, C 48, 96, 192
+    (0.375, 0.67): (True, False, False, False),
     (0.5, 0.33): (True, True, True, True),       # the flagship
     (0.5, 0.67): (True, False, True, True),      # 6 blocks in stages 2-3
-    (0.75, 0.33): (False, False, False, False),  # O 48, C 96, 192, 384
-    (0.75, 0.67): (False, False, False, False),
+    (0.75, 0.33): (True, False, False, False),   # O 48, C 96, 192, 384
+    (0.75, 0.67): (True, False, False, False),
+    (1.25, 1.33): (True, False, False, False),   # YOLOX-x: O 80, C 160
 }
 MIXES = list(itertools.product(('auto', 'cuda', 'torch'), repeat=4))
 
@@ -120,6 +121,34 @@ def test_explicit_kernel_at_unsupported_dims_raises_at_build(monkeypatch,
         auto = build_mot_config({**cfg, **{k: 'auto' for k in KEYS}},
                                 device='cuda')
     assert auto.backends == _expected(('auto',) * 4, support, True)
+
+
+@pytest.mark.parametrize('widen', [0.375, 0.75, 1.25])
+def test_stem_kernel_runs_every_yolox_width(widen):
+    """YOLOX-tiny, -m and -x (stem O = 24, 48, 80): the stem kernel takes
+    their width; with every stage 'auto' on a CUDA device the stem runs
+    its kernel and stage 1, whose kernel is built for C = 32 only, moves
+    to the float32 modules with the builder's warning (one more for each
+    later stage whose own dims would move it), and every stage after it
+    follows."""
+    from stereotracking_tpu_torch.ops import stem_cuda
+    o = int(64 * widen)
+    assert o in stem_cuda.STEM_WIDTHS and stem_cuda.dims_problem(o) is None
+    assert 'got O = 40' in stem_cuda.dims_problem(40)
+    assert 'got O = 88' in stem_cuda.dims_problem(88)
+    cfg = {'detector': {'backbone': {'widen_factor': widen,
+                                     'deepen_factor': 0.33}},
+           **{k: 'auto' for k in KEYS}}
+    with pytest.warns(UserWarning) as caught:
+        got = resolve_stage_backends(cfg, 'cuda')
+    assert got == StageBackends('cuda', 'torch', 'torch', 'torch')
+    said = [str(w.message) for w in caught]
+    assert said[0].startswith("stage1_backend='auto' runs on the float32 "
+                              'modules'), said
+    assert not any(m.startswith('stem_backend') for m in said), said
+    assert resolve_stage_backends({**cfg, 'stem_backend': 'cuda',
+                                   'stage1_backend': 'torch'},
+                                  'cuda').stem == 'cuda'
 
 
 @pytest.mark.parametrize('mix', MIXES, ids='-'.join)

@@ -580,3 +580,54 @@ def test_captured_one_stream_with_depth_equals_eager(dev):
             assert torch.equal(getattr(got, name), getattr(want, name)), name
     assert int((want.track_gt_depths > 0).sum()) > 0
     assert one._step.captures == 1
+
+
+def test_ransac_pairs_on_the_card_equal_the_cpu(dev):
+    """The RANSAC draws (Threefry in int64 tensor arithmetic) on the card
+    are the CPU's, bit for bit, for frame ids across the int32 range."""
+    from stereotracking_tpu_torch.ops.gmc import ransac_pairs
+    fids = torch.tensor([0, 1, 2, 17, 1000, 2 ** 31 - 1], dtype=torch.int32)
+    for n in (256, 100):
+        assert torch.equal(ransac_pairs(fids.to(dev), 128, n).cpu(),
+                           ransac_pairs(fids, 128, n))
+
+
+def test_captured_cmc_step_equals_eager(dev):
+    """The moving-camera config's step (the camera-motion chain in the
+    graph) over 4 frames of a panning camera: the replayed track_raw
+    against predict_frames_batched with its own CMC state, ids and
+    validity exact, the CMC state equal; one capture."""
+    from stereotracking_tpu_torch.models.mot import (
+        MOTConfig, OCSORTDisparity, init_cmc_state, predict_frames_batched,
+        preprocess_raw)
+    from stereotracking_tpu_torch.models import tracker as trk
+    from stereotracking_tpu_torch.ops.gmc import GMCConfig
+    cfg = MOTConfig(detector=DetectorConfig(backbone='single',
+                                            widen_factor=0.25),
+                    cmc=GMCConfig(size=64))
+    det = YOLOXDetector(cfg.detector)
+    init_weights(det, torch.Generator().manual_seed(3))
+    head = det.bbox_head.head_module
+    with torch.no_grad():
+        for conv in (*head.multi_level_conv_cls, *head.multi_level_conv_obj):
+            conv.bias.fill_(3.0)
+    g = torch.Generator().manual_seed(4)
+    scene = torch.randint(0, 256, (H + 32, W + 32, 3), generator=g,
+                          dtype=torch.uint8)
+    img = torch.stack([scene[8 + 2 * t:8 + 2 * t + H, 8 + 3 * t:8 + 3 * t + W]
+                       for t in range(4)]).to(dev)
+    disp = torch.full((4, H, W), 320, dtype=torch.int32).to(dev).to(
+        torch.uint16)
+    one = OCSORTDisparity(cfg, module=det, device=dev)
+    states = trk.init_state(cfg.tracker, dev, 1)
+    cmc = init_cmc_state(cfg.cmc, dev, 1)
+    for t in range(4):
+        got = one.track_raw(img[t], disp[t], t)
+        inputs = preprocess_raw(img[t:t + 1], disp[t:t + 1], H, W)
+        states, want = predict_frames_batched(one.module, states, inputs,
+                                              [t], cfg, cmc=cmc,
+                                              cmc_frame=img[t:t + 1])
+        for name in ('track_ids', 'track_valid', 'det_valid'):
+            assert torch.equal(getattr(got, name), getattr(want, name)[0])
+        assert torch.equal(one.cmc.prev, cmc.prev)
+    assert bool(one.cmc.has_prev.all()) and one._step.captures == 1

@@ -380,7 +380,7 @@ def test_cli_streams_equal_sequential(cli_setup):
 def test_cli_refuses_unported_flags(cli_setup):
     from stereotracking_tpu_torch.tools import test as cli
     _, cfg, _, _ = cli_setup
-    for flag in (['--interpolate'], ['--aflink', 'x.ckpt'],
+    for flag in (['--show-errors'], ['--dist-coordinator', 'h:1'],
                  ['--show-dir', 'vis'], ['--launcher', 'jax']):
         with pytest.raises(NotImplementedError, match='Queue 1 item 3'):
             cli.parse_args([str(cfg)] + flag)
