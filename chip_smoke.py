@@ -36,6 +36,11 @@ Phases, in order; any failure exits non-zero:
    after it; the stem kernel also at O = 24, 48 and 80 (YOLOX-tiny, -m
    and -x) on both branches of the 8-stream frames with seeded random
    weights, the same tolerance, times and bound (JSON ``stem.widths``);
+   and each stage kernel at YOLOX-nano's and -tiny's widths (stage 1 C =
+   16, 24; stage 2 C = 32, 48; stage 3 C = 64, 96) on seeded activations
+   of its 8-stream input shape with seeded random weights, the flagship
+   rows' tolerance, one launch a call, times and bound (JSON
+   ``stage1.widths`` etc.);
 4. reference: on a small frame the kernel path's head outputs (stage 3
    through its kernel too) must agree with the float32 module path;
 5. slice: ``build_model(flagship config)`` on the card, ``track_raw`` over
@@ -44,10 +49,13 @@ Phases, in order; any failure exits non-zero:
    during the replays; outputs finite; no host sync in a frame; the same
    frames through the eager step (``predict_frames_batched``) equal (ids
    and validity exact, boxes within 1e-2 px) and timed beside the replays;
-   then over 2 frames each the stem and stage-1 kernels with stage 2 on
-   the float32 modules, and widen-0.25, 0.375 and 0.75 configs with every
-   stage 'auto' (the stem kernel only, at O = 16, 24, 48; the builder's
-   warning for stage 1 printed);
+   then over 2 frames each, replayed as above (0 host syncs, replayed ==
+   eager): the stem and stage-1 kernels with stage 2 on the float32
+   modules; widen-0.25 and 0.375 configs with every stage 'auto' (the
+   stem, stage-1 and stage-2 kernels, no builder warning) and with
+   ``stage3_backend='cuda'`` (stage 3 too); a widen-0.75 config with every
+   stage 'auto' (the stem kernel only, at O = 48; the builder's warning
+   for stages 1 and 2, naming ROADMAP Queue 3 item 1, printed);
 6. multi-stream: ``MultiStreamTracker`` with the flagship config and
    ``stage3_backend='cuda'``, 8 replayed steps of 8 streams (each stream
    its own seed); ms per step and stereo pairs/s, replayed and eager;
@@ -62,7 +70,11 @@ Phases, in order; any failure exits non-zero:
    findings, not checks: the largest bf16 - float32 difference of the head
    maps on one frame and how many of stream 0's track slots differ over 3
    steps; then the device time of the tracker's fixed-trip smoothing
-   replay alone (one CUDA graph) at 8 and one stream;
+   replay alone (one CUDA graph) at 8 and one stream; then YOLOX-tiny's
+   widths (widen 0.375, seeded random weights) on the same 8 steps in
+   bf16, replayed (0 host syncs, replayed == eager), every stage 'auto'
+   (stem, stage-1 and stage-2 kernels) against the stem kernel with
+   stages 1-3 on the bf16 modules, ms per step of each;
 8. eval: the eval CLI's loop (``stereotracking_tpu_torch.tools.test.
    evaluate``) over 2 videos x 6 frames of 1080x1920 held in memory (ground
    truth: the rectangles ``make_frames`` draws), weights through
@@ -72,7 +84,10 @@ Phases, in order; any failure exits non-zero:
    batch-invariant choice): the count metrics of the two loops must be
    equal; pairs/s; no host sync per step besides the result fetch; as a
    finding, the bf16 loops with cuDNN on (the CLI's choice overridden):
-   whether they differ, and their pairs/s; then ``inference_mot`` over 2
+   whether they differ, and their pairs/s; the float32 sequential loop
+   once more with ``--show-dir --show-interval 2 --show-errors``: 0 host
+   syncs per step, and one JPEG of the frame's size for frames 0, 2, 4 of
+   each video under ``<dir>/<video>/``; then ``inference_mot`` over 2
    frames must equal ``track_raw`` (ids exact, boxes within 1e-3 px);
 9. train: the flagship detector (full width, float32, TF32 off) in train
    mode, ``train/train_state.train_step`` at batch 8 of 736x1280 on the two
@@ -95,10 +110,10 @@ Phases, in order; any failure exits non-zero:
    and its steps replayed again under ``torch.profiler``, the wrappers'
    counts set to 0 just before: the hand-written kernels in the trace must
    be stem 2, stage 1 1, stage 2 1, stage 3 1 (0 in phase 5), depth 2,
-   assignment 3 and nms 1 per step (phase 5's backend mixes: stem 2, stage
-   1 1 or 0, stages 2-3 0, depth 2, assignment 3, nms 1), the wrappers'
-   counts 0 (every step a replay), and ids and validity as in the timed
-   run;
+   assignment 3 and nms 1 per step (phase 5's backend mixes: stem 2, each
+   stage 1 where it resolved to its kernel, else 0, depth 2, assignment
+   3, nms 1), the wrappers' counts 0 (every step a replay), and ids and
+   validity as in the timed run;
 11. probe: the stage-1 kernel's six variants at 8 streams, each held to
    the plain version and timed (``tools/probe_stage1_variants.py``), the
    production one beside the wmma 16x16 region it replaced;
@@ -108,7 +123,8 @@ Phases, in order; any failure exits non-zero:
    padded to 416x1280): every kernel of its path held to its plain version
    at 8 streams of this shape with phase 3's tolerances (stage 3
    explicitly; depth, JV and NMS on the main path's own inputs, both labels
-   kept; the stem also at O = 24, 48, 80), one stream over 6 frames and
+   kept; the stem also at O = 24, 48, 80, the stage kernels at phase 3's
+   other widths), one stream over 6 frames and
    8 streams over 8 steps replayed equal to eager with 0 host syncs (ms per frame, pairs/s), the eval
    CLI's loop over 2 videos x 6 frames sequential and ``--streams 2`` in
    float32 (count metrics equal); the monocular config (single backbone,
@@ -148,8 +164,10 @@ Output: the per-phase lines, then the card line and one JSON line of kernel
 results (8-stream shapes; launches from the trace of phase 6's replayed
 steps, the probe's from the probe run; ``kitti_416x1280``: the same
 kernel's error, times and bound at 8 streams of the KITTI shape;
-``stem.widths``: the stem at O = 24, 48 and 80), then, as
-the last line, ``{"ok": true, "device": {...}}``.
+``stem.widths``: the stem at O = 24, 48 and 80; ``stage1.widths``,
+``stage2.widths``, ``stage3.widths``: the stage kernels at YOLOX-nano's
+and -tiny's widths), then, as the last line, ``{"ok": true, "device":
+{...}}``.
 """
 import contextlib
 import json
@@ -487,6 +505,112 @@ def check_stem_widths(img, disp_u16, oh, ow, iters=10):
     return rows
 
 
+# the stage kernels' YOLOX widths beyond the flagship's: (stage, C) at
+# deepen 0.33, nano (widen 0.25: stage 1 16, stage 2 32, stage 3 64) and
+# tiny (0.375: 24, 48, 96); seeded random weights and inputs (phase 3)
+STAGE_EXTRA_WIDTHS = (('stage1', 16), ('stage1', 24), ('stage2', 32),
+                      ('stage2', 48), ('stage3', 64), ('stage3', 96))
+
+
+def random_stage_kernel(dims, seed, device):
+    """Seeded random stage weights of ``dims`` (C_in, C_out, mid, nb) packed
+    for the kernels: bf16 values, BN scales in [0.5, 1.5)."""
+    import torch
+    from stereotracking_tpu_torch.ops import stage2_cuda
+    cin, cout, mid, nb = dims
+    g = torch.Generator().manual_seed(seed)
+
+    def w(*shape):
+        return (torch.randn(shape, generator=g) * 0.1).to(
+            torch.bfloat16).float().to(device)
+
+    def sb(*shape):
+        return torch.stack([torch.rand(shape, generator=g) + 0.5,
+                            torch.randn(shape, generator=g) * 0.1],
+                           dim=-2).to(device)
+
+    return stage2_cuda.pack_stage(stage2_cuda.StageWeights(
+        entry_w=w(3, 3, cin, cout), entry_sb=sb(cout),
+        ms_w=w(cout, 2 * mid), ms_sb=sb(2 * mid),
+        c1_w=w(nb, mid, mid), c1_sb=sb(nb, mid),
+        c2_w=w(nb, 3, 3, mid, mid), c2_sb=sb(nb, mid),
+        fin_w=w(2 * mid, cout), fin_sb=sb(cout)))
+
+
+def stage_close(name, k, p):
+    """A stage kernel's output against its plain version: bf16 chains
+    whose roundings may flip by one ulp and carry on, held to 2e-2 of the
+    output's largest magnitude (the JAX package's own stage tolerance,
+    tests/test_stage2_pallas.py).  Returns the largest error."""
+    import torch
+    require(k.shape == p.shape, f'{name} shape {k.shape} vs {p.shape}')
+    err = float((k.float() - p.float()).abs().max())
+    scale = float(p.float().abs().max())
+    require(err <= 2e-2 * scale + 1e-3,
+            f'{name}: max_abs_err {err} > 2e-2 * {scale} + 1e-3')
+    require(bool(torch.isfinite(k.float()).all()), f'{name} not finite')
+    return err, scale
+
+
+def check_stage_widths(n, oh, ow, device, iters=10):
+    """Phase 3 (widths): each stage kernel at YOLOX-nano's and -tiny's
+    widths (``STAGE_EXTRA_WIDTHS``) against its plain version with the
+    flagship rows' tolerance, on n streams of an (oh, ow) frame's stage
+    input (stem output / 1, 2, 4: seeded bf16 activations); kernel and
+    plain version timed, the bound from the bytes and operations, the
+    launches of one call.  Returns {stage: {'c<C>': row}}."""
+    import torch
+    from stereotracking_tpu_torch import _kernels
+    from stereotracking_tpu_torch.ops import (stage1_cuda, stage2_cuda,
+                                              stage3_cuda)
+    rows = {}
+    for stage, c in STAGE_EXTRA_WIDTHS:
+        nb = 1 if stage == 'stage1' else 3
+        dims = (c, 2 * c, c, nb)
+        scale_hw = {'stage1': 2, 'stage2': 4, 'stage3': 8}[stage]
+        h, w = oh // scale_hw, ow // scale_hw
+        g = torch.Generator().manual_seed(SEED + 7 * c)
+        n_in = 2 if stage == 'stage1' else 1
+        xs = [(torch.randn((n, h, w, c), generator=g) * 0.8).to(
+            torch.bfloat16).to(device) for _ in range(n_in)]
+        ks = [random_stage_kernel(dims, SEED + 100 * b + c, device)
+              for b in range(n_in)]
+        kernel = {'stage1': stage1_cuda.stage1_dual,
+                  'stage2': stage2_cuda.stage_csp,
+                  'stage3': stage3_cuda.stage3_csp}[stage]
+        reference = (stage1_cuda.stage1_dual_plain if stage == 'stage1'
+                     else stage2_cuda.stage_csp_plain)
+
+        def fn():
+            return kernel(*xs, *ks)
+
+        def plain():
+            return reference(*xs, *ks)
+        _kernels.reset_launch_counts()
+        k = fn()
+        launches = _kernels.launch_counts()
+        require({m: v for m, v in launches.items() if v} == {stage: 1},
+                f'{stage} C={c}: one call launched {launches}')
+        err, scale = stage_close(f'{stage} C={c}', k, plain())
+        ops = n * n_in * stage_ops(ks[0], k.shape[1], k.shape[2])
+        t, by = bound(nbytes(*xs, k) + sum(nbytes(kk.ws, kk.sb)
+                                           for kk in ks), ops, PEAK_BF16)
+        row = dict(max_abs_err=err, tolerance=2e-2 * scale + 1e-3,
+                   ms=time_ms(fn, iters), plain_ms=time_ms(plain, iters),
+                   bound_ms=t, bound_by=by, library_ms=None)
+        row['tflops'] = ops / row['ms'] * 1e-9
+        row['bound_share'] = t / row['ms']
+        rows.setdefault(stage, {})[f'c{c}'] = row
+        print(f'kernel {stage} C={c} x{n} ({h}x{w} in): max_abs_err '
+              f'{err:.6g} (tolerance {row["tolerance"]:.4g})  kernel '
+              f'{row["ms"]:.4f} ms  plain {row["plain_ms"]:.4f} ms  bound '
+              f'{t:.4f} ms ({by}); {ops / 1e9:.2f} GFLOP = '
+              f'{row["tflops"]:.1f} TFLOP/s, {100 * row["bound_share"]:.1f}%'
+              f' of the bound', flush=True)
+        del xs, k
+    return rows
+
+
 def check_kernels(model, frames, next_frames, device, iters=10):
     """Phase 3 at S = len(frames) streams: each kernel against its plain
     version, all timed, the depth, assignment and NMS kernels on the
@@ -553,17 +677,10 @@ def check_kernels(model, frames, next_frames, device, iters=10):
            ops=ops)
     del xs
 
-    # stages: bf16 chains whose roundings may flip by one ulp and carry on,
-    # held to 2e-2 of the output's largest magnitude (the JAX package's own
-    # stage tolerance, tests/test_stage2_pallas.py)
+    # stages: held to 2e-2 of the output's largest magnitude (stage_close)
     def stage_check(name, fn, plain, ins, ks):
-        k, p = fn(), plain()
-        require(k.shape == p.shape, f'{name} shape {k.shape} vs {p.shape}')
-        err = float((k.float() - p.float()).abs().max())
-        scale = float(p.float().abs().max())
-        require(err <= 2e-2 * scale + 1e-3,
-                f'{name}: max_abs_err {err} > 2e-2 * {scale} + 1e-3')
-        require(bool(torch.isfinite(k.float()).all()), f'{name} not finite')
+        k = fn()
+        err, _ = stage_close(name, k, plain())
         ops = n * sum(stage_ops(kk, k.shape[1], k.shape[2]) for kk in ks)
         weights = sum(nbytes(kk.w, kk.sb) for kk in ks)
         record(name, err, fn, plain, bound_ms=bound(
@@ -1204,10 +1321,12 @@ PER_STEP = {'stem': 2, 'stage1': 1, 'stage2': 1, 'stage3': 1, 'depth': 2,
 
 # the kernel that each wrapper launches, as a torch.profiler trace names it
 # (stage 3's wrapper launches an entry and a chain kernel, one count)
-TRACE_KERNELS = {'stem': 'focus_stem_kernel', 'stage1': 'stage1_mma_kernel',
-                 'stage2': 'stage_csp_kernel', 'stage3': 'stage3_chain_kernel',
-                 'depth': 'box_depths_kernel', 'assignment': 'jv_kernel',
-                 'nms': 'nms_kernel'}
+TRACE_KERNELS = {'stem': ('focus_stem_kernel',),
+                 'stage1': ('stage1_mma_kernel',),
+                 'stage2': ('stage_csp_kernel',),
+                 'stage3': ('stage3_chain_kernel', 'stage3_fused_kernel'),
+                 'depth': ('box_depths_kernel',), 'assignment': ('jv_kernel',),
+                 'nms': ('nms_kernel',)}
 
 
 def require_launches(counts, want, steps, what):
@@ -1256,16 +1375,17 @@ def trace_launches(tracker, frames, ids, want, results, what, tries=3):
             torch.cuda.synchronize()
         require_replayed(f'{what} (traced)')
         keys = [(e.key, e.count) for e in prof.key_averages()]
-        seen = {name: sum(c for k, c in keys if sym in k)
-                for name, sym in TRACE_KERNELS.items()}
+        seen = {name: sum(c for k, c in keys if any(y in k for y in syms))
+                for name, syms in TRACE_KERNELS.items()}
         entry = sum(c for k, c in keys if 'stage3_entry_kernel' in k)
+        chain = sum(c for k, c in keys if 'stage3_chain_kernel' in k)
         short = [n for n, per in want.items() if seen[n] < per * len(frames)]
         if not short or attempt == tries:
             break
         print(f'launches {what}: trace {attempt} holds {seen}, short of '
               f'{short}: taken again', flush=True)
-    require(entry == seen['stage3'], f'{what}: {entry} stage-3 entry '
-            f'kernels beside {seen["stage3"]} chain kernels in the trace')
+    require(entry == chain, f'{what}: {entry} stage-3 entry kernels beside '
+            f'{chain} chain kernels in the trace')
     require_launches(seen, want, len(frames), f'{what} (trace)')
     for t, (a, b) in enumerate(zip(got, results)):
         for name in ('track_ids', 'track_valid', 'det_valid'):
@@ -1407,16 +1527,17 @@ def run_slice(model, frames, device):
 
 
 def run_mixed(model, frames, device):
-    """Phase 5b: backend mixes over 2 frames each.  One the JAX builder
-    accepts: the stem and stage-1 kernels with stage 2 on the float32
-    modules.  And widen-0.25, 0.375 and 0.75 configs (seeded random
-    weights) with every stage 'auto': the stem kernel (O = 16, 24, 48)
-    hands over to the float32 stage 1, whose kernel is built for C = 32
-    only, and the builder warns that 'auto' moved stage 1 to the modules
-    (and stage 2, where its own dims would move it too; it follows stage 1
-    there anyway)."""
-    import torch
-    from stereotracking_tpu_torch import _kernels
+    """Phase 5b: backend mixes over 2 frames each, graph-replayed
+    (``replayed_run``: no wrapper launch, 0 host syncs, replayed == eager).
+    One the JAX builder accepts: the stem and stage-1 kernels with stage 2
+    on the float32 modules.  Then configs at other widths (seeded random
+    weights): YOLOX-nano (widen 0.25) and -tiny (0.375) with every stage
+    'auto' resolve to the stem, stage-1 and stage-2 kernels with no
+    builder warning (stage 3 'auto' stays on the modules, as the JAX
+    builder decides), and with ``stage3_backend='cuda'`` run the stage-3
+    kernel too; widen 0.75 with every stage 'auto' runs the stem kernel
+    (O = 48) only, the builder warning that 'auto' moved stages 1 and 2 to
+    the modules (ROADMAP Queue 3 item 1)."""
     from stereotracking_tpu_torch.apis.builder import build_mot_config
     from stereotracking_tpu_torch.models.csp_darknet import StageBackends
     from stereotracking_tpu_torch.models.mot import OCSORTDisparity
@@ -1425,23 +1546,26 @@ def run_mixed(model, frames, device):
     mixed = flagship_cfg()['model']
     mixed.update(stem_backend='cuda', stage1_backend='cuda',
                  stage2_backend='torch')
-    def widened(widen):
+
+    def widened(widen, **backends):
         m = flagship_cfg()['model']
         m['detector']['backbone']['widen_factor'] = widen
+        m.update(backends)
         return m
 
-    stem_only = ('cuda', 'torch', 'torch', 'torch')
+    kernels3, kernels4 = ('cuda',) * 3 + ('torch',), ('cuda',) * 4
     for what, cfg, module, backends, moved in (
             ('stem + stage-1 kernels, stage 2-3 modules', mixed,
              model.module, ('cuda', 'cuda', 'torch', 'torch'), ()),
-            ("widen 0.25, all 'auto'", widened(0.25), None, stem_only,
-             ('stage1',)),
-            # YOLOX-tiny and -m: the stem kernel at O = 24 and 48; stages 1
-            # and 2 are not built for their widths (ROADMAP Queue 3 item 1)
-            ("widen 0.375, all 'auto'", widened(0.375), None, stem_only,
-             ('stage1', 'stage2')),
-            ("widen 0.75, all 'auto'", widened(0.75), None, stem_only,
-             ('stage1', 'stage2'))):
+            ("widen 0.25, all 'auto'", widened(0.25), None, kernels3, ()),
+            ("widen 0.25, stage 3 'cuda'",
+             widened(0.25, stage3_backend='cuda'), None, kernels4, ()),
+            ("widen 0.375, all 'auto'", widened(0.375), None, kernels3, ()),
+            ("widen 0.375, stage 3 'cuda'",
+             widened(0.375, stage3_backend='cuda'), None, kernels4, ()),
+            # YOLOX-m's widths: stages 1-3 not built (Queue 3 item 1)
+            ("widen 0.75, all 'auto'", widened(0.75), None,
+             ('cuda', 'torch', 'torch', 'torch'), ('stage1', 'stage2'))):
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter('always')
             mot = build_mot_config(cfg, device)
@@ -1451,27 +1575,21 @@ def run_mixed(model, frames, device):
                 f'{what}: resolved to {mot.backends}')
         require(sorted(m.split('_backend')[0] for m in said) == list(moved),
                 f'{what}: the builder reported {said}')
+        require(all('Queue 3 item 1' in m for m in said),
+                f'{what}: the builder\'s warning names no roadmap item: '
+                f'{said}')
         one = OCSORTDisparity(mot, module=module, device=device, seed=SEED)
-        prime(one, dev_frames[0][0][0], dev_frames[0][1][0], 0)
-        torch.cuda.synchronize()
-        _kernels.reset_launch_counts()
-        results = []
-        for f, (img, disp) in enumerate(dev_frames):
-            r = one.track_raw(img[0], disp[0], f)
-            check_result(r, (), mot.tracker.num_dets, f'{what}, frame {f}')
-            results.append(r)
-        torch.cuda.synchronize()
-        require_replayed(f'mixed ({what})')
         want = {name: per if b == 'cuda' else 0 for name, per, b in zip(
             StageBackends._fields, (2, 1, 1, 1), backends)}
         want.update(depth=2, assignment=3, nms=1)
-        jobs.append(trace_job(
-            one, [(img[0], disp[0]) for img, disp in dev_frames],
-            list(range(len(frames))), want, results, f'mixed ({what})'))
+        r = replayed_run(one, dev_frames, 0, f'mixed ({what})', want)
+        jobs.append(r['job'])
         for m in said:
             print(f'mixed backends ({what}): builder: {m}', flush=True)
-        print(f'mixed backends ({what}): {len(frames)} frames replayed',
-              flush=True)
+        print(f'mixed backends ({what}): {len(frames)} frames replayed, '
+              f'{r["syncs"]} host syncs, replayed == eager (ids exact, boxes '
+              f'within {r["err"]:.3g} px); expected launches per step '
+              f'{want}', flush=True)
     return jobs
 
 
@@ -1563,7 +1681,7 @@ def profile_steps(step, what):
     for us, cnt, key in rows[:40]:
         print(f'profile {what}: {us:12.1f} us {cnt:6d}x {key[:90]}',
               flush=True)
-    names = tuple(TRACE_KERNELS.values()) + ('stage3_entry_kernel',)
+    names = sum(TRACE_KERNELS.values(), ()) + ('stage3_entry_kernel',)
     seen = {n: sum(c for _, c, k in rows if n in k) for n in names}
     print(f'profile {what}: hand-written kernel launches in the trace of 2 '
           f'steps: {seen}', flush=True)
@@ -1630,6 +1748,60 @@ def run_bf16(model, device, f32):
           f'{differ} of {total} track slots differ in id or validity from '
           f'the float32 run', flush=True)
     return dict(tracker=ms, job=run['job'])
+
+
+def run_tiny_bf16(device, steps):
+    """Phase 7b: YOLOX-tiny's widths (widen 0.375, deepen 0.33; seeded
+    random weights, head biases ``HEAD_BIAS``) on the multi-stream phase's
+    8 steps of 8 streams in bf16, graph-replayed (0 host syncs, replayed ==
+    eager): every stage 'auto' (the stem, stage-1 and stage-2 kernels)
+    against the stem kernel with stages 1-3 on the bf16 modules, what
+    'auto' chose before the stage kernels were built for these widths.
+    Returns the two runs' trace jobs."""
+    import torch
+    from stereotracking_tpu_torch.apis.builder import build_mot_config
+    from stereotracking_tpu_torch.models.csp_darknet import StageBackends
+    from stereotracking_tpu_torch.models.detector import YOLOXDetector
+    from stereotracking_tpu_torch.models.mot import init_weights
+    from stereotracking_tpu_torch.parallel.multistream import \
+        MultiStreamTracker
+    bf16 = torch.bfloat16
+    cfg = flagship_cfg()['model']
+    cfg['detector']['backbone']['widen_factor'] = 0.375
+    jobs, ms = [], {}
+    for what, keys, backends in (
+            ('kernels', {}, ('cuda',) * 3 + ('torch',)),
+            ('modules', dict(stem_backend='cuda', stage1_backend='torch',
+                             stage2_backend='torch', stage3_backend='torch'),
+             ('cuda',) + ('torch',) * 3)):
+        mot = build_mot_config({**cfg, **keys}, device)
+        require(mot.backends == StageBackends(*backends),
+                f'widen 0.375 {what}: resolved to {mot.backends}')
+        det = YOLOXDetector(mot.detector, dtype=bf16)
+        with torch.no_grad():
+            init_weights(det, torch.Generator().manual_seed(SEED + 375))
+        set_head_bias(det, HEAD_BIAS)
+        tracker = MultiStreamTracker(mot, N_STREAMS, module=det,
+                                     device=device, dtype=bf16)
+        want = {name: per if b == 'cuda' else 0 for name, per, b in zip(
+            StageBackends._fields, (2, 1, 1, 1), backends)}
+        want.update(depth=2, assignment=3, nms=1)
+        run = replayed_run(tracker, steps, N_STREAMS,
+                           f'widen 0.375 bf16 {what}', want)
+        ms[what] = run['ms']
+        jobs.append(run['job'])
+        print(f'widen 0.375 bf16 ({what}, stages {backends}): {N_STREAMS} '
+              f'streams x {N_STEPS} steps of {FRAME_H}x{FRAME_W}; replayed '
+              f'ms/step {[round(x, 2) for x in run["per_step"]]}, median of '
+              f'steps 2-{N_STEPS - 1} {run["ms"]:.2f} '
+              f'({N_STREAMS / run["ms"] * 1e3:.1f} stereo pairs/s); eager '
+              f'median {run["eager_ms"]:.2f}; host syncs per step '
+              f'{run["syncs"]}; replayed == eager (ids exact, boxes within '
+              f'{run["err"]:.3g} px)', flush=True)
+    print(f'widen 0.375 bf16: the stage kernels {ms["kernels"]:.2f} ms per '
+          f'step against the modules {ms["modules"]:.2f}: '
+          f'{ms["modules"] / ms["kernels"]:.2f}x', flush=True)
+    return jobs
 
 
 class MemoryDataset:
@@ -1726,6 +1898,47 @@ def eval_loops(m, data, cfg, flags, device, tmp, counts, n_classes=1,
     return got
 
 
+def check_show_dir(m, data, cfg, device, tmp):
+    """Phase 8 (drawing): the eval CLI's loop with ``--show-dir
+    --show-interval 2 --show-errors`` (sequential, float32): 0 host syncs
+    per step besides the result fetch (the frames are drawn from the
+    reader's host images and the fetched results); the files
+    ``<dir>/<video>/<frame:06d>.jpg`` of frames 0, 2, 4, ... of each
+    video, each a JPEG of the frame's size."""
+    from PIL import Image
+    from stereotracking_tpu_torch.evaluation import (CocoMAPEvaluator,
+                                                     MOTDroneMetrics)
+    from stereotracking_tpu_torch.tools import test as cli
+    show = os.path.join(tmp, 'show')
+    args = cli.parse_args([CONFIG, '--device', str(device), '--work-dir',
+                           tmp, '--show-dir', show, '--show-interval', '2',
+                           '--show-errors'])
+    videos = data.videos()
+    frames = sum(len(data.video_frames(v)) for v in videos)
+    t0 = time.perf_counter()
+    syncs = count_syncs(lambda: cli.evaluate(
+        m, data, videos, args, cfg['img_scale'],
+        MOTDroneMetrics(outfile_dir=tmp), CocoMAPEvaluator(num_classes=1)))
+    elapsed = time.perf_counter() - t0
+    require(syncs == 0, f'eval --show-dir: {syncs} host syncs besides the '
+            f'result fetches')
+    want = sorted(os.path.join(data.video_name(v), f'{t:06d}.jpg')
+                  for v in videos
+                  for t in range(0, len(data.video_frames(v)), 2))
+    got = sorted(os.path.relpath(os.path.join(d, f), show)
+                 for d, _, fs in os.walk(show) for f in fs)
+    require(got == want, f'eval --show-dir wrote {got}, expected {want}')
+    for rel in got:
+        with Image.open(os.path.join(show, rel)) as im:
+            require(im.format == 'JPEG' and im.size == (data.w, data.h),
+                    f'eval --show-dir {rel}: {im.format} {im.size}')
+    print(f'eval --show-dir --show-interval 2 --show-errors: {len(got)} '
+          f'JPEG files of {data.w}x{data.h} for {frames} frames, '
+          f'{frames / elapsed:.1f} stereo pairs/s with the drawing (under '
+          f'the sync debug mode), 0 host syncs besides the result fetch',
+          flush=True)
+
+
 def run_eval(model, device):
     """Phase 8: the eval CLI's loop (``tools/test.evaluate``) on a dataset
     held in memory (2 videos x 6 frames of 1080x1920, ``img_scale`` the
@@ -1781,6 +1994,7 @@ def run_eval(model, device):
                     f'{got["streams 2"][0]}')
             out[dtype] = {mode: pps for mode, (_, pps) in got.items()}
             if dtype != 'bf16':
+                check_show_dir(m, data, cfg, device, tmp)
                 continue
             # the finding: the bf16 loops with cuDNN on
             choose = cli.batch_invariant_convs
@@ -2180,6 +2394,7 @@ def run_kitti(device, card):
     img, disp_u16 = to_card([f[0] for f in streams], device)
     widths = check_stem_widths(img, disp_u16, oh, ow)
     del img, disp_u16
+    stage_widths = check_stage_widths(N_STREAMS, oh, ow, device)
 
     one = [to_card([f], device) for f in resized_frames(
         N_FRAMES, KITTI_H, KITTI_W, scale, 500)]
@@ -2215,6 +2430,8 @@ def run_kitti(device, card):
     require(not apart, f'KITTI eval: {apart} differ between the loops')
     rows = json_rows(res)
     rows['stem']['widths'] = json_rows(widths)
+    for stage, by_c in stage_widths.items():
+        rows[stage]['widths'] = json_rows(by_c)
     return rows, [r1['job'], r8['job']]
 
 
@@ -2738,6 +2955,9 @@ def main():
     img, disp_u16 = to_card(streams, device)
     res['stem']['widths'] = check_stem_widths(
         img, disp_u16, *padded_shape(FRAME_H, FRAME_W))
+    for stage, rows in check_stage_widths(
+            N_STREAMS, *padded_shape(FRAME_H, FRAME_W), device).items():
+        res[stage]['widths'] = rows
     # the flagship only: the depth kernel also on synthetic boxes at every
     # pyramid level and through every vote branch
     res['depth']['synthetic'], depth_trace = check_depth(
@@ -2753,6 +2973,7 @@ def main():
     lap('mixed backends (phase 5)')
     f32 = run_multistream(model, device)
     bf16 = run_bf16(model, device, f32)
+    tiny_jobs = run_tiny_bf16(device, f32['steps'])
     replay_cost(f32['mot'].tracker, device, N_STREAMS)
     replay_cost(f32['mot'].tracker, device, 1)
     lap('multi-stream and bf16 (phases 6-7)')
@@ -2779,10 +3000,11 @@ def main():
     trace()
     depth_trace()
     lap('kernel device times')
-    for job in [slice_job] + mixed_jobs + [bf16['job']] + other_jobs:
+    for job in [slice_job] + mixed_jobs + [bf16['job']] + tiny_jobs + \
+            other_jobs:
         trace_launches(**job)
     counts = trace_launches(**f32['job'])
-    del slice_job, mixed_jobs
+    del slice_job, mixed_jobs, tiny_jobs
     if '--profile' in sys.argv[1:]:
         for job in other_jobs:          # the traced steps' ids, continued
             n = len(job['frames'])

@@ -39,7 +39,8 @@ def init_model(config, checkpoint: Optional[str] = None, device='cuda',
             raise NotImplementedError(
                 f'checkpoint {checkpoint!r}: only PyTorch checkpoints '
                 f'(.pth / .pt) load here; JAX-native (orbax / '
-                f'msgpack) checkpoints are not ported (ROADMAP.md Queue 1)')
+                f'msgpack) checkpoints are not ported (ROADMAP.md Queue 1 '
+                f'item 3)')
         mot = build_mot_config(cfg['model'], device)
         module = YOLOXDetector(mot.detector, dtype=dtype or torch.float32)
         module.load_state_dict(detector_state_dict(checkpoint, module))

@@ -28,13 +28,23 @@
 //   may start at any slice of the stream (make_pipe), so a launch that runs
 //   only part of the chain streams only its slices.
 // - Operands: ldmatrix from shared memory, .trans for the row-major (k, n)
-//   slices.  Every buffer is pixel-major with its 16-byte channel chunks
-//   XOR-swizzled by pixel index (by pixel / 2 in the entry conv's input
-//   patch, whose A rows are two pixels apart), so the 8 rows of an
-//   ldmatrix, and the 8 pixels of an epilogue store, fall in different
-//   banks; the swizzle is a function of the absolute pixel index, so the
-//   shifted 3x3 views still read the right chunks.  It stays inside a
-//   pixel's chunks when their count is a power of two or a multiple of 8.
+//   slices.  Every buffer is pixel-major in 16-byte channel chunks, laid
+//   out so that the 8 rows of an ldmatrix, and the 8 pixels of an epilogue
+//   store, fall in different banks (swz): at 4 chunks a pixel or a multiple
+//   of 8 (the flagship's widths) the chunks are XOR-swizzled by pixel index
+//   (by pixel / 2 in the entry conv's input patch, whose A rows are two
+//   pixels apart); at 2, 3, 6 or 12 chunks (YOLOX-nano's and -tiny's
+//   widths, where an XOR would leave the pixel) a pixel takes an odd
+//   number of chunks, nch | 1, unswizzled, and the input patch keeps each
+//   row's even columns before its odd ones, so the entry conv's A rows are
+//   consecutive.  Both are functions of the absolute pixel index, so the
+//   shifted 3x3 views still read the right chunks.
+// - K steps of 16 channels: at an even chunk count a step lies in one tap
+//   (or in main or short); at C = 24 (K = 24 and 216 GEMMs) each lane reads
+//   its own chunk k8 = 2 ks + lane / 16 (tap_chunk), so a step may straddle
+//   two taps or [main | short].  A lane past K reads a zeroed chunk
+//   (L.zero), against the zero rows pack_slices pads K with: zeros add
+//   exactly.
 // - Epilogue in registers: folded BN + SiLU (act_fast) with the pass's
 //   scale and bias held in registers, one bf16 rounding, bf16x2 words
 //   straight into the destination buffer (the residual of conv2 read the
@@ -88,48 +98,116 @@ __host__ __device__ inline int chain_slices(StageDims d) {
          gemm_slices(2 * d.mid, d.cout);
 }
 
+// A buffer of `chans` channels a pixel (a multiple of 8: chans / 8 chunks of
+// 16 bytes) is XOR-swizzled at 4 chunks a pixel or a multiple of 8, else
+// padded to an odd pitch of (chans / 8) | 1 chunks: either way 8
+// consecutive pixels' chunk ch lie in 8 different 16-byte bank groups (at
+// 4 chunks, 2 apart: the flagship's layout, kept as it was).
+__host__ __device__ constexpr bool xor_layout(int chans) {
+  return chans / 8 == 4 || (chans / 8) % 8 == 0;
+}
+
+__host__ __device__ constexpr int pitch_bytes(int chans) {
+  return 16 * (xor_layout(chans) ? chans / 8 : (chans / 8) | 1);
+}
+
+// The stage's widths leave K of some GEMM off a multiple of 16 (C = 24):
+// its A reads past K come from a zeroed chunk.
+__host__ __device__ inline bool ragged_k(StageDims d) {
+  return d.cin % 16 != 0 || d.mid % 16 != 0;
+}
+
 // Byte offsets of the shared-memory buffers: `in` (the entry conv's input
-// patch) is dead once z exists, and m, s, m2 and c1 reuse its bytes; `extra`
-// (extra_bytes after the ring) is the caller's.
+// patch) is dead once z exists, and m, s, m2 and c1 reuse its bytes; `zero`
+// (16 bytes after the ring, where ragged_k) is the zeroed chunk; `extra`
+// (extra_bytes after it) is the caller's.
 struct Layout {
-  size_t in, z, m, s, m2, c1, ring, extra, total;
+  size_t in, z, m, s, m2, c1, ring, zero, extra, total;
 };
 
 template <int GH>
 __host__ __device__ inline Layout layout(StageDims d, size_t extra_bytes = 0) {
   using R = Region<GH>;
   Layout L;
-  const size_t e = 2;
+  const size_t pm = pitch_bytes(d.mid);
   L.in = 0;
   L.m = 0;
-  L.s = L.m + align128(R::P * d.mid * e);
-  L.m2 = L.s + align128(R::P * d.mid * e);
-  L.c1 = L.m2 + align128(R::P * d.mid * e);
-  const size_t chain_end = L.c1 + align128((R::P + 2 * PAD) * d.mid * e);
-  const size_t in_end = align128((size_t)R::IH * R::IW * d.cin * e);
+  L.s = L.m + align128(R::P * pm);
+  L.m2 = L.s + align128(R::P * pm);
+  L.c1 = L.m2 + align128(R::P * pm);
+  const size_t chain_end = L.c1 + align128((R::P + 2 * PAD) * pm);
+  const size_t in_end =
+      align128((size_t)R::IH * R::IW * pitch_bytes(d.cin));
   L.z = chain_end > in_end ? chain_end : in_end;
-  L.ring = L.z + align128(R::P * d.cout * e);
-  L.extra = L.ring + STAGES * SLICE_BYTES;
+  L.ring = L.z + align128(R::P * pitch_bytes(d.cout));
+  L.zero = L.ring + STAGES * SLICE_BYTES;
+  L.extra = L.zero + (ragged_k(d) ? 128 : 0);
   L.total = L.extra + align128(extra_bytes);
   return L;
 }
 
 // Byte offset of channel chunk ch (8 channels) of pixel p in a buffer of
-// `chans` channels per pixel, the chunk index XORed with the key's low bits.
-__device__ __forceinline__ uint32_t swz(int p, int ch, int chans, int key) {
-  const int nch = chans >> 3;
-  const int mask = (nch < 8 ? nch : 8) - 1;
-  return static_cast<uint32_t>(p * chans * 2 + ((ch ^ (key & mask)) << 4));
+// CHANS channels per pixel: XOR layouts XOR the chunk index with the key's
+// low bits, odd-pitch layouts ignore the key.
+template <int CHANS>
+__device__ __forceinline__ uint32_t swz(int p, int ch, int key) {
+  constexpr int nch = CHANS / 8;
+  if constexpr (xor_layout(CHANS)) {
+    constexpr int mask = (nch < 8 ? nch : 8) - 1;
+    return static_cast<uint32_t>(p * CHANS * 2 + ((ch ^ (key & mask)) << 4));
+  } else {
+    return static_cast<uint32_t>(p * pitch_bytes(CHANS) + (ch << 4));
+  }
 }
 
 // Byte offset of channel n (even) of pixel p: the bf16x2 word (n, n + 1).
-__device__ __forceinline__ uint32_t swz_word(int p, int n, int chans) {
-  return swz(p, n >> 3, chans, p) + (n & 7) * 2;
+template <int CHANS>
+__device__ __forceinline__ uint32_t swz_word(int p, int n) {
+  return swz<CHANS>(p, n >> 3, p) + (n & 7) * 2;
+}
+
+// Byte offset of chunk ch of the input patch's pixel (py, px), IW pixels a
+// row: XOR layouts number the pixels row-major and swizzle by index / 2;
+// odd-pitch layouts keep each row's even columns, then its odd ones, so the
+// entry conv's A rows (columns two apart) are consecutive pixels.
+template <int CIN, int IW>
+__device__ __forceinline__ uint32_t patch_off(int py, int px, int ch) {
+  if constexpr (xor_layout(CIN)) {
+    const int p = py * IW + px;
+    return swz<CIN>(p, ch, p >> 1);
+  } else {
+    const int q = py * IW + ((px & 1) ? (IW + 1) / 2 + (px >> 1) : px >> 1);
+    return swz<CIN>(q, ch, 0);
+  }
 }
 
 __device__ __forceinline__ uint32_t* smem_word(unsigned char* smem,
                                                size_t off) {
   return reinterpret_cast<uint32_t*>(smem + off);
+}
+
+// The tap and the chunk (of NCH in a tap) of this lane's A chunk k8 = 2 ks
+// + lc at k step ks of a GEMM whose K is taps x NCH chunks: for an even
+// NCH a step stays in one tap, uniform over the lanes (the flagship's
+// form); for an odd NCH (C = 24) the lanes' chunks may straddle two taps.
+template <int NCH>
+__device__ __forceinline__ int2 tap_chunk(int ks, int lc) {
+  if constexpr (NCH % 2 == 0) {
+    return make_int2(ks / (NCH / 2), (ks % (NCH / 2)) * 2 + lc);
+  } else {
+    const int k8 = 2 * ks + lc;
+    return make_int2(k8 / NCH, k8 % NCH);
+  }
+}
+
+// The zeroed chunk, where the stage's K is ragged; ordered before any read
+// by the barrier of the GEMM's first slice.  All threads call it.
+template <int C>
+__device__ __forceinline__ void zero_chunk(unsigned char* smem,
+                                           const Layout& L) {
+  if constexpr (C % 16 != 0) {
+    if (threadIdx.x < 4) *smem_word(smem, L.zero + 4 * threadIdx.x) = 0u;
+  }
 }
 
 // The ring of weight slices, fed from the packed stream `src`.
@@ -185,14 +263,16 @@ __device__ __forceinline__ Pipe make_pipe(const bf16* ws, int first,
 // sb: [scale (N); bias (N)].  epi(p, n, v): the bf16x2 word v of columns
 // (n, n + 1) of pixel p after BN + SiLU and the bf16 rounding.  MT, K and N
 // are compile-time, so a full slice (K, N multiples of SLICE) runs
-// unguarded.
+// unguarded.  K and N are multiples of 8: a last K step of 8 reads the
+// zero rows the slices are padded with (and a_addr's zeroed chunk); an odd
+// count of n tiles computes one more from the zero columns and drops it.
 template <int MT, int K, int N, class AAddr, class Epi>
 __device__ __forceinline__ void gemm(Pipe& pipe, const float* __restrict__ sb,
                                      AAddr a_addr, Epi epi) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3, mt0 = MT * warp;
   for (int n0 = 0; n0 < N; n0 += SLICE) {
-    const int nt = N % SLICE == 0 ? 8 : min(SLICE, N - n0) / 8;   // even
+    const int nt = N % SLICE == 0 ? 8 : min(SLICE, N - n0) / 8;
     float acc[MT][8][4];
     float2 sc[8], bi[8];
 #pragma unroll
@@ -209,7 +289,7 @@ __device__ __forceinline__ void gemm(Pipe& pipe, const float* __restrict__ sb,
     }
     for (int k0 = 0; k0 < K; k0 += SLICE) {
       const uint32_t slot = pipe.next();
-      const int ksn = K % SLICE == 0 ? 4 : min(SLICE, K - k0) / 16;
+      const int ksn = K % SLICE == 0 ? 4 : cdiv(min(SLICE, K - k0), 16);
 #pragma unroll
       for (int kk = 0; kk < SLICE / 16; ++kk) {
         if (kk < ksn) {
@@ -260,8 +340,8 @@ template <int C>
 __device__ __forceinline__ auto to_main_short(unsigned char* smem,
                                               const Layout& L) {
   return [smem, &L](int p, int n, uint32_t v) {
-    *smem_word(smem, n < C ? L.m + swz_word(p, n, C)
-                           : L.s + swz_word(p, n - C, C)) = v;
+    *smem_word(smem, n < C ? L.m + swz_word<C>(p, n)
+                           : L.s + swz_word<C>(p, n - C)) = v;
   };
 }
 
@@ -269,7 +349,7 @@ __device__ __forceinline__ auto to_main_short(unsigned char* smem,
 template <int CHANS>
 __device__ __forceinline__ auto to_buffer(unsigned char* smem, size_t off) {
   return [smem, off](int p, int n, uint32_t v) {
-    *smem_word(smem, off + swz_word(p, n, CHANS)) = v;
+    *smem_word(smem, off + swz_word<CHANS>(p, n)) = v;
   };
 }
 
@@ -289,7 +369,7 @@ __device__ inline void entry_part(Pipe& pipe, const bf16* __restrict__ x,
   constexpr int CIN = C, COUT = 2 * C, IW = R::IW;
   const int lane = threadIdx.x & 31, lr = lane & 15, lc = lane >> 4;
   const uint32_t base = smem_u32(smem);
-  const uint32_t in_s = base + L.in, z_s = base + L.z;
+  const uint32_t in_s = base + L.in, z_s = base + L.z, zero_s = base + L.zero;
 
   // the input patch (zeros outside the map), then the first slices
   constexpr int C8 = CIN / 8;
@@ -298,21 +378,26 @@ __device__ inline void entry_part(Pipe& pipe, const bf16* __restrict__ x,
     const int ch = i % C8, p = i / C8;
     const int y = y0 + p / IW, xx = x0 + p % IW;
     const bool ok = y >= 0 && y < hin && xx >= 0 && xx < win;
-    cp_async16(in_s + swz(p, ch, CIN, p >> 1),
+    cp_async16(in_s + (xor_layout(CIN) ? swz<CIN>(p, ch, p >> 1)
+                                       : patch_off<CIN, IW>(p / IW, p % IW,
+                                                            ch)),
                ok ? x + ((size_t)y * win + xx) * CIN + ch * 8 : x,
                ok ? 16 : 0);
   }
   cp_async_commit();
+  zero_chunk<C>(smem, L);
   pipe.start();
 
   // z = entry 3x3 stride 2: m tile = one region row, rows two pixels apart
-  constexpr int CPT = CIN / 16;
   gemm<R::MT, 9 * CIN, COUT>(
       pipe, w.entry_sb,
       [&](int mt, int ks) {
-        const int tap = ks / CPT, ch = (ks % CPT) * 2 + lc;
-        const int p = (2 * mt + tap / 3) * IW + 2 * lr + tap % 3;
-        return in_s + swz(p, ch, CIN, p >> 1);
+        if constexpr (C % 16 != 0) {
+          if (2 * ks + lc >= 9 * C8) return zero_s;
+        }
+        const int2 tc = tap_chunk<C8>(ks, lc);
+        return in_s + patch_off<CIN, IW>(2 * mt + tc.x / 3,
+                                         2 * lr + tc.x % 3, tc.y);
       },
       to_buffer<COUT>(smem, L.z));
   // main | short
@@ -320,7 +405,7 @@ __device__ inline void entry_part(Pipe& pipe, const bf16* __restrict__ x,
       pipe, w.ms_sb,
       [&](int mt, int ks) {
         const int p = mt * 16 + lr;
-        return z_s + swz(p, 2 * ks + lc, COUT, p);
+        return z_s + swz<COUT>(p, 2 * ks + lc, p);
       },
       ms);
 }
@@ -337,45 +422,53 @@ __device__ inline void chain_part(Pipe& pipe, int nb, int hout, int wout,
                                   unsigned char* smem, const Layout& L,
                                   BeforeFinal before_final, FinEpi fin) {
   using R = Region<GH>;
-  constexpr int MID = C, COUT = 2 * C;
+  constexpr int MID = C, COUT = 2 * C, M8 = MID / 8;
+  constexpr int PB = pitch_bytes(MID);
   const int lane = threadIdx.x & 31, lr = lane & 15, lc = lane >> 4;
   const uint32_t base = smem_u32(smem);
-  const uint32_t s_s = base + L.s, c1_s = base + L.c1;
+  const uint32_t s_s = base + L.s, c1_s = base + L.c1, zero_s = base + L.zero;
 
   // conv1's flat pads: nothing reads these bytes any more (every warp is
   // past main|short's first barrier), and the barrier of the next GEMM
   // orders these stores before the first conv2 reads them
-  for (int i = threadIdx.x; i < PAD * MID / 2; i += THREADS) {
+  for (int i = threadIdx.x; i < PAD * PB / 4; i += THREADS) {
     *smem_word(smem, L.c1 + i * 4) = 0u;
-    *smem_word(smem, L.c1 + (size_t)(PAD + R::P) * MID * 2 + i * 4) = 0u;
+    *smem_word(smem, L.c1 + (size_t)(PAD + R::P) * PB + i * 4) = 0u;
   }
+  zero_chunk<C>(smem, L);
 
   size_t m = L.m, m2 = L.m2;
-  constexpr int MPT = MID / 16;
   for (int b = 0; b < nb; ++b) {
     const uint32_t m_s = base + m;
     gemm<R::MT, MID, MID>(
         pipe, w.c1_sb + b * 2 * MID,
         [&](int mt, int ks) {
-          const int p = mt * 16 + lr;
-          return m_s + swz(p, 2 * ks + lc, MID, p);
+          const int p = mt * 16 + lr, k8 = 2 * ks + lc;
+          if constexpr (C % 16 != 0) {
+            if (k8 >= M8) return zero_s;
+          }
+          return m_s + swz<MID>(p, k8, p);
         },
         [&](int p, int n, uint32_t v) {
           const int y = oy0 + p / GW, xx = ox0 + p % GW;
           const bool inside = y >= 0 && y < hout && xx >= 0 && xx < wout;
-          *smem_word(smem, L.c1 + swz_word(p + PAD, n, MID)) =
+          *smem_word(smem, L.c1 + swz_word<MID>(p + PAD, n)) =
               inside ? v : 0u;
         });
     gemm<R::MT, 9 * MID, MID>(
         pipe, w.c2_sb + b * 2 * MID,
         [&](int mt, int ks) {
-          const int tap = ks / MPT, ch = (ks % MPT) * 2 + lc;
-          const int q = mt * 16 + lr + (tap / 3 - 1) * GW + tap % 3 - 1 + PAD;
-          return c1_s + swz(q, ch, MID, q);
+          if constexpr (C % 16 != 0) {
+            if (2 * ks + lc >= 9 * M8) return zero_s;
+          }
+          const int2 tc = tap_chunk<M8>(ks, lc);
+          const int q =
+              mt * 16 + lr + (tc.x / 3 - 1) * GW + tc.x % 3 - 1 + PAD;
+          return c1_s + swz<MID>(q, tc.y, q);
         },
         [&](int p, int n, uint32_t v) {
-          const uint32_t r = *smem_word(smem, m + swz_word(p, n, MID));
-          *smem_word(smem, m2 + swz_word(p, n, MID)) = pack_bf16x2(
+          const uint32_t r = *smem_word(smem, m + swz_word<MID>(p, n));
+          *smem_word(smem, m2 + swz_word<MID>(p, n)) = pack_bf16x2(
               __float2bfloat16_rn(st_f(lo_bf16(v)) + st_f(lo_bf16(r))),
               __float2bfloat16_rn(st_f(hi_bf16(v)) + st_f(hi_bf16(r))));
         });
@@ -384,35 +477,67 @@ __device__ inline void chain_part(Pipe& pipe, int nb, int hout, int wout,
     m2 = tmp;
   }
   before_final();
-  // final 1x1 on [m | s]
+  // final 1x1 on [m | s]: K = 2 MID chunks, taps m and s
   const uint32_t m_s = base + m;
   gemm<R::MT, 2 * MID, COUT>(
       pipe, w.fin_sb,
       [&](int mt, int ks) {
         const int p = mt * 16 + lr;
-        return ks < MPT ? m_s + swz(p, 2 * ks + lc, MID, p)
-                        : s_s + swz(p, 2 * (ks - MPT) + lc, MID, p);
+        if constexpr (M8 % 2 == 0) {
+          constexpr int MPT = M8 / 2;
+          return ks < MPT ? m_s + swz<MID>(p, 2 * ks + lc, p)
+                          : s_s + swz<MID>(p, 2 * (ks - MPT) + lc, p);
+        } else {
+          const int2 tc = tap_chunk<M8>(ks, lc);
+          return (tc.x == 0 ? m_s : s_s) + swz<MID>(p, tc.y, p);
+        }
       },
       fin);
   __syncthreads();
 }
 
 // Copies the centre tile (th x tw, e rings in) of the region result in the
-// swizzled buffer at byte offset `off` (c channels per pixel) to the NHWC
-// output (hout, wout, c) at (oy0, ox0), 16-byte chunks, clipped.
+// swizzled buffer at byte offset `off` (CH channels per pixel) to the NHWC
+// output (hout, wout, CH) at (oy0, ox0), 16-byte chunks, clipped.
+template <int CH>
 __device__ inline void store_tile(const unsigned char* smem, size_t off,
-                                  int e, int th, int tw, int c, int oy0,
-                                  int ox0, int hout, int wout,
+                                  int e, int th, int tw, int oy0, int ox0,
+                                  int hout, int wout,
                                   bf16* __restrict__ out) {
-  const int c8 = c / 8;
+  constexpr int c8 = CH / 8;
   for (int i = threadIdx.x; i < th * tw * c8; i += THREADS) {
     const int ch = i % c8, p = i / c8;
     const int ty = p / tw, tx = p % tw;
     const int y = oy0 + ty, xx = ox0 + tx, rp = (ty + e) * GW + tx + e;
     if (y < hout && xx < wout)
-      *reinterpret_cast<uint4*>(out + ((size_t)y * wout + xx) * c + ch * 8) =
-          *reinterpret_cast<const uint4*>(smem + off + swz(rp, ch, c, rp));
+      *reinterpret_cast<uint4*>(out + ((size_t)y * wout + xx) * CH + ch * 8) =
+          *reinterpret_cast<const uint4*>(smem + off + swz<CH>(rp, ch, rp));
   }
+}
+
+// The whole stage in one block per GH x 16 region (a (GH - 2 nb) x
+// (16 - 2 nb) output tile): entry_part, chain_part, the tile stored; x and
+// out at stream blockIdx.z.  Stage 2, and stage 3 at C = 64.
+template <int GH, int C>
+__device__ inline void fused_stage(const bf16* __restrict__ x, int hin,
+                                   int win, StageDims d,
+                                   const bf16* __restrict__ ws,
+                                   const float* __restrict__ sb,
+                                   bf16* __restrict__ out,
+                                   unsigned char* smem) {
+  const int hout = hin / 2, wout = win / 2;
+  const int e = d.nb, th = GH - 2 * e, tw = GW - 2 * e;
+  const Layout L = layout<GH>(d);
+  const int oy0 = blockIdx.y * th, ox0 = blockIdx.x * tw;
+  x += (size_t)blockIdx.z * hin * win * C;
+  out += (size_t)blockIdx.z * hout * wout * 2 * C;
+  const StageWeightPtrs w = st_chain::weight_ptrs(ws, sb, d);
+  Pipe pipe = make_pipe(ws, 0, chain_slices(d), smem_u32(smem) + L.ring);
+  entry_part<GH, C>(pipe, x, hin, win, w, oy0 - e, ox0 - e, smem, L,
+                    to_main_short<C>(smem, L));
+  chain_part<GH, C>(pipe, d.nb, hout, wout, w, oy0 - e, ox0 - e, smem, L,
+                    [] {}, to_buffer<2 * C>(smem, L.z));
+  store_tile<2 * C>(smem, L.z, e, th, tw, oy0, ox0, hout, wout, out);
 }
 
 }  // namespace st_mma_chain

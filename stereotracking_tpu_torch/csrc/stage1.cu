@@ -16,8 +16,9 @@
 // 16 x 16 region, 31 with an 8 x 16 one) bound it at the tensor cores'
 // rate.
 //
-// Production design (mma_chain.cuh, variants r16x16_mma and r8x16_mma, C =
-// 32 only): one block per GH x 16 region = a (GH - 2) x 14 output tile plus
+// Production design (mma_chain.cuh, variants r16x16_mma and r8x16_mma, C
+// in {16, 24, 32}: YOLOX-nano, -tiny and -s; one bottleneck, as the Pallas
+// kernel): one block per GH x 16 region = a (GH - 2) x 14 output tile plus
 // the one ring the bottleneck consumes, recomputed per tile.  The block runs
 // entry_part + chain_part on the RGB stem, its final epilogue writing the
 // region result into a P x 64 bf16 buffer after the weight ring; then on the
@@ -33,7 +34,10 @@
 // per SM hide each other's per-slice barriers and copies, which outweighs
 // its 1.52x recompute against 1.31x.  What is left (tools/ablate_kernels.py):
 // the SFU's SiLU (a fifth of the time: stage 1's GEMMs are narrow, so it
-// has many outputs per operation), tensor-core issue, the barriers.
+// has many outputs per operation), tensor-core issue, the barriers.  At
+// C = 16 and 24 the buffers take odd pitches (mma_chain.cuh); C = 24's
+// K = 24 and 216 GEMMs end on a half step read from a zeroed chunk.  The
+// GH = 8 region then takes 59,776 B (C = 16) and 72,192 B (C = 24).
 //
 // Variants (the card's counterpart of the TPU probe's layout variants):
 // the region height (16 or 8 rows) and the GEMM inner loop: wmma or scalar
@@ -109,7 +113,16 @@ cudaError_t launch(const void* x_rgb, const void* x_disp, int n, int h,
 
 namespace mc = st_mma_chain;
 
-template <int GH>
+// Shared memory of stage1_mma_kernel<GH, C>: the chain core's and the RGB
+// result (P pixels of O = 2 C channels).
+template <int GH, int C>
+__host__ __device__ inline mc::Layout mma_layout() {
+  constexpr StageDims d{C, 2 * C, C, 1};
+  return mc::layout<GH>(
+      d, (size_t)mc::Region<GH>::P * mc::pitch_bytes(2 * C));
+}
+
+template <int GH, int C>
 __global__ void __launch_bounds__(mc::THREADS, GH == 8 ? 2 : 1)
 stage1_mma_kernel(const bf16* __restrict__ x_rgb,
                   const bf16* __restrict__ x_disp, int hin, int win,
@@ -117,12 +130,11 @@ stage1_mma_kernel(const bf16* __restrict__ x_rgb,
                   const float* __restrict__ sb_rgb,
                   const bf16* __restrict__ ws_disp,
                   const float* __restrict__ sb_disp, bf16* __restrict__ out) {
-  constexpr int C = 32, O = 2 * C, TH = GH - 2, TW = mc::GW - 2;
+  constexpr int O = 2 * C, TH = GH - 2, TW = mc::GW - 2;
   constexpr StageDims d{C, O, C, 1};
   extern __shared__ __align__(128) unsigned char smem[];
   const int hout = hin / 2, wout = win / 2;
-  const mc::Layout L =
-      mc::layout<GH>(d, (size_t)mc::Region<GH>::P * O * sizeof(bf16));
+  const mc::Layout L = mma_layout<GH, C>();
   const int oy0 = blockIdx.y * TH, ox0 = blockIdx.x * TW;
   const size_t in_off = (size_t)blockIdx.z * hin * win * C;
   out += (size_t)blockIdx.z * hout * wout * O;
@@ -145,32 +157,28 @@ stage1_mma_kernel(const bf16* __restrict__ x_rgb,
       [&](int p, int n, uint32_t v) {
         using namespace st_mma;
         const uint32_t r =
-            *mc::smem_word(smem, L.extra + mc::swz_word(p, n, O));
-        *mc::smem_word(smem, L.z + mc::swz_word(p, n, O)) = pack_bf16x2(
+            *mc::smem_word(smem, L.extra + mc::swz_word<O>(p, n));
+        *mc::smem_word(smem, L.z + mc::swz_word<O>(p, n)) = pack_bf16x2(
             __float2bfloat16_rn((st_f(lo_bf16(v)) + st_f(lo_bf16(r))) * 0.5f),
             __float2bfloat16_rn((st_f(hi_bf16(v)) + st_f(hi_bf16(r))) * 0.5f));
       });
-  mc::store_tile(smem, L.z, 1, TH, TW, O, oy0, ox0, hout, wout, out);
+  mc::store_tile<O>(smem, L.z, 1, TH, TW, oy0, ox0, hout, wout, out);
 }
 
-template <int GH>
-cudaError_t launch_mma(const void* x_rgb, const void* x_disp, int n, int h,
-                       int w, StageDims d, const void* ws_rgb,
-                       const void* sb_rgb, const void* ws_disp,
-                       const void* sb_disp, void* out, cudaStream_t stream) {
-  if (d.cin != 32 || d.mid != 32 || d.cout != 64 || d.nb != 1)
-    return cudaErrorInvalidValue;
-  const size_t bytes =
-      mc::layout<GH>(d, (size_t)mc::Region<GH>::P * d.cout * sizeof(bf16))
-          .total;
+template <int GH, int C>
+cudaError_t launch_mma_c(const void* x_rgb, const void* x_disp, int n,
+                         int h, int w, const void* ws_rgb, const void* sb_rgb,
+                         const void* ws_disp, const void* sb_disp, void* out,
+                         cudaStream_t stream) {
+  const size_t bytes = mma_layout<GH, C>().total;
   if (bytes > MAX_SMEM) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      stage1_mma_kernel<GH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      stage1_mma_kernel<GH, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   const int hout = h / 2, wout = w / 2, th = GH - 2, tw = mc::GW - 2;
   dim3 grid((wout + tw - 1) / tw, (hout + th - 1) / th, n);
-  stage1_mma_kernel<GH><<<grid, mc::THREADS, bytes, stream>>>(
+  stage1_mma_kernel<GH, C><<<grid, mc::THREADS, bytes, stream>>>(
       static_cast<const bf16*>(x_rgb), static_cast<const bf16*>(x_disp), h,
       w, static_cast<const bf16*>(ws_rgb), static_cast<const float*>(sb_rgb),
       static_cast<const bf16*>(ws_disp), static_cast<const float*>(sb_disp),
@@ -178,19 +186,46 @@ cudaError_t launch_mma(const void* x_rgb, const void* x_disp, int n, int h,
   return cudaGetLastError();
 }
 
+// The mma.sync kernel at the region height GH: C = C_in = mid = C_out / 2
+// in {16, 24, 32}, one bottleneck.
+template <int GH>
+cudaError_t launch_mma(const void* x_rgb, const void* x_disp, int n, int h,
+                       int w, StageDims d, const void* ws_rgb,
+                       const void* sb_rgb, const void* ws_disp,
+                       const void* sb_disp, void* out, cudaStream_t stream) {
+  if (d.mid != d.cin || d.cout != 2 * d.cin || d.nb != 1)
+    return cudaErrorInvalidValue;
+  switch (d.cin) {
+    case 16:
+      return launch_mma_c<GH, 16>(x_rgb, x_disp, n, h, w, ws_rgb, sb_rgb,
+                                  ws_disp, sb_disp, out, stream);
+    case 24:
+      return launch_mma_c<GH, 24>(x_rgb, x_disp, n, h, w, ws_rgb, sb_rgb,
+                                  ws_disp, sb_disp, out, stream);
+    case 32:
+      return launch_mma_c<GH, 32>(x_rgb, x_disp, n, h, w, ws_rgb, sb_rgb,
+                                  ws_disp, sb_disp, out, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // x_rgb, x_disp: (n, h, w, cin); out: (n, h/2, w/2, cout).  variant: 0 =
 // 16x16 region, wmma; 1 = 8x16, wmma; 2 = 16x16, FMA; 3 = 8x16, FMA (w_rgb,
-// w_disp: the flat weights of weight_ptrs); 4 = 16x16, mma.sync; 5 = 8x16,
-// mma.sync (w_rgb, w_disp: the packed slices of pack_slices; C = 32 only).
+// w_disp: the flat weights of weight_ptrs; channel counts multiples of 16);
+// 4 = 16x16, mma.sync; 5 = 8x16, mma.sync (w_rgb, w_disp: the packed slices
+// of pack_slices; C in {16, 24, 32}).
 ST_EXPORT int st_stage1_dual(const void* x_rgb, const void* x_disp, int n,
                              int h, int w, int cin, int cout, int mid,
                              int nb, const void* w_rgb, const void* sb_rgb,
                              const void* w_disp, const void* sb_disp,
                              void* out, int variant, void* stream) {
   const StageDims d{cin, cout, mid, nb};
-  if (cin % 16 || cout % 16 || mid % 16 || nb < 1 || n < 1)
+  if (cin % 8 || cout % 8 || mid % 8 || nb < 1 || n < 1)
+    return cudaErrorInvalidValue;
+  if (variant < 4 && (cin % 16 || cout % 16 || mid % 16))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (variant) {

@@ -2,11 +2,11 @@
 //
 // Replaces: stereotracking_tpu/ops/stage2_pallas.py, stage2_fold_pallas /
 // _stage2_kernel (reached through pallas_stage2_out).  Built for YOLOX's
-// stage-2 shape, C_in = mid = C_out / 2, at C_in 32 and 64 (template C);
-// the flagship's stage 2 is (64, 128, 3 blocks).  Stage 3 (128, 256, 3)
-// does not fit a 16 x 16 region and runs the same chain in two launches
-// (stage3.cu); stage 1 runs it twice per region, once per branch
-// (stage1.cu).
+// stage-2 shape, C_in = mid = C_out / 2, at C_in 32, 48 and 64 (template
+// C: YOLOX-nano, -tiny and -s); the flagship's stage 2 is (64, 128, 3
+// blocks).  Stage 3 (128, 256, 3) does not fit a 16 x 16 region and runs
+// the same chain in two launches (stage3.cu); stage 1 runs it twice per
+// region, once per branch (stage1.cu).
 //
 // What it computes: see csp_chain.cuh.  Input (S, hin, win, C_in) bf16
 // NHWC, output (S, hin/2, win/2, C_out) bf16 NHWC; one launch covers the S
@@ -37,6 +37,8 @@
 // input patch (139 KB), z (64 KB) and the ring (16 KB): 221,312 B, one block
 // per SM.  What is left (tools/ablate_kernels.py): the SFU's SiLU, the
 // per-slice barriers, and ldmatrix/mma issue with 8 warps per SM.
+// At C = 48 (6 and 12 chunks a pixel: odd pitches, mma_chain.cuh) the
+// patch takes 121,984 B, z 53,248 B: 191,616 B with the ring.
 #include "mma_chain.cuh"
 
 namespace {
@@ -51,19 +53,7 @@ stage_csp_kernel(const bf16* __restrict__ x, int hin, int win, StageDims d,
                  const bf16* __restrict__ ws, const float* __restrict__ sb,
                  bf16* __restrict__ out) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int hout = hin / 2, wout = win / 2;
-  const int e = d.nb, th = GH - 2 * e, tw = GW - 2 * e;
-  const Layout L = layout<GH>(d);
-  const int oy0 = blockIdx.y * th, ox0 = blockIdx.x * tw;
-  x += (size_t)blockIdx.z * hin * win * d.cin;
-  out += (size_t)blockIdx.z * hout * wout * d.cout;
-  const StageWeightPtrs w = st_chain::weight_ptrs(ws, sb, d);
-  Pipe pipe = make_pipe(ws, 0, chain_slices(d), smem_u32(smem) + L.ring);
-  entry_part<GH, C>(pipe, x, hin, win, w, oy0 - e, ox0 - e, smem, L,
-                    to_main_short<C>(smem, L));
-  chain_part<GH, C>(pipe, d.nb, hout, wout, w, oy0 - e, ox0 - e, smem, L,
-                    [] {}, to_buffer<2 * C>(smem, L.z));
-  store_tile(smem, L.z, e, th, tw, d.cout, oy0, ox0, hout, wout, out);
+  fused_stage<GH, C>(x, hin, win, d, ws, sb, out, smem);
 }
 
 template <int C>
@@ -88,8 +78,7 @@ cudaError_t launch(const bf16* x, int n, int h, int w, StageDims d,
 
 // x: (n, h, w, cin); weights: the packed slices (ops/stage2_cuda.py
 // pack_slices); out: (n, h/2, w/2, cout).  Built for cin = mid = cout / 2
-// in {32, 64} (YOLOX's stage 2 at widen 0.25 and 0.5): the swizzle needs a
-// power-of-two count of 16-byte chunks per pixel or a multiple of 8.
+// in {32, 48, 64} (YOLOX's stage 2 at widen 0.25, 0.375 and 0.5).
 ST_EXPORT int st_stage_csp(const void* x, int n, int h, int w, int cin,
                            int cout, int mid, int nb, const void* weights,
                            const void* sb, void* out, void* stream) {
@@ -104,6 +93,8 @@ ST_EXPORT int st_stage_csp(const void* x, int n, int h, int w, int cin,
   switch (cin) {
     case 32:
       return launch<32>(xp, n, h, w, d, ws, s, o, st);
+    case 48:
+      return launch<48>(xp, n, h, w, d, ws, s, o, st);
     case 64:
       return launch<64>(xp, n, h, w, d, ws, s, o, st);
     default:

@@ -1,4 +1,5 @@
-// Fused stage 3 (3x3 stride-2 entry conv + CSP chain) in two launches.
+// Fused stage 3 (3x3 stride-2 entry conv + CSP chain) in two launches (one
+// at YOLOX-nano's width).
 //
 // Replaces: stereotracking_tpu/ops/stage2_pallas.py, stage2_fold_pallas
 // reached through pallas_stage3_out (the generic stage kernel on the
@@ -6,12 +7,18 @@
 // flagship).
 //
 // What it computes: the chain of csp_chain.cuh, the same roundings as the
-// one-launch stage kernel (stage2.cu).  Input (S, hin, win, 128) bf16 NHWC,
-// output (S, hin/2, win/2, 256) bf16 NHWC; each launch covers the S streams
-// (grid z).  Built for C_in = mid = C_out / 2 = 128.
+// one-launch stage kernel (stage2.cu).  Input (S, hin, win, C) bf16 NHWC,
+// output (S, hin/2, win/2, 2 C) bf16 NHWC; each launch covers the S streams
+// (grid z).  Built for C_in = mid = C_out / 2 = C in {64, 96, 128}
+// (YOLOX-nano, -tiny and -s).  At C = 64 the stage fits one launch on
+// 16 x 16 regions (221,312 B), as stage 2 at that width does
+// (stage3_fused_kernel, mma_chain.cuh fused_stage); at 96 and 128 it runs
+// in two, as below.  At C = 96 (12 and 24 chunks a pixel: an odd pitch
+// and the XOR layout, mma_chain.cuh) launch A takes 182,272 B and launch B
+// 183,296 B.
 //
 // Why two launches: the one-launch kernel's 16 x 16 region needs a
-// 33 x 33 x 128 bf16 input patch (278,784 B) at these widths, more than a
+// 33 x 33 x 128 bf16 input patch (278,784 B) at C = 128, more than a
 // block's 232,448 B; an 8 x 16 region would fit, but with 3 bottlenecks its
 // exact tile is 2 x 10 of 128 region pixels: 6.4x the chain's work.  So each
 // launch runs one half of mma_chain.cuh's chain:
@@ -44,27 +51,29 @@ namespace {
 
 using namespace st_mma_chain;
 
-constexpr int C = 128;      // C_in = mid = C_out / 2
 constexpr int GH_A = 8;     // launch A: tile = region, 8 x 16
 constexpr int GH_B = 16;    // launch B: 16 x 16 region, tile 16 - 2 nb
+constexpr int FUSED_C = 64; // C that runs in one launch
 
-// Launch B's buffers: main, its next version, conv1 with its flat pads
-// (short once conv1 is dead), the ring.
+// Launch B's buffers at C = C_in = mid: main, its next version, conv1 with
+// its flat pads (short once conv1 is dead), the ring.
+template <int C>
 __host__ __device__ inline Layout layout_b() {
-  constexpr size_t P = Region<GH_B>::P, mb = P * C * 2;
+  constexpr size_t P = Region<GH_B>::P, pb = pitch_bytes(C), mb = P * pb;
   Layout L{};
   L.m = 0;
   L.m2 = mb;
   L.c1 = 2 * mb;
   L.s = L.c1;
-  L.ring = L.c1 + align128((P + 2 * PAD) * C * 2);
-  L.extra = L.total = L.ring + STAGES * SLICE_BYTES;
+  L.ring = L.c1 + align128((P + 2 * PAD) * pb);
+  L.zero = L.extra = L.total = L.ring + STAGES * SLICE_BYTES;
   return L;
 }
 
 // Copies channels [c0, c0 + C) of the 16 x 16 pixels from (y0, x0) of the
 // (h, w, 2 C) map src into the swizzled buffer at shared address dst (C
 // channels per pixel) by cp.async, zeros outside the map; commits a group.
+template <int C>
 __device__ inline void load_half(uint32_t dst, const bf16* __restrict__ src,
                                  int h, int w, int c0, int y0, int x0) {
   constexpr int C8 = C / 8;
@@ -72,7 +81,7 @@ __device__ inline void load_half(uint32_t dst, const bf16* __restrict__ src,
     const int ch = i % C8, p = i / C8;
     const int y = y0 + p / GW, xx = x0 + p % GW;
     const bool ok = y >= 0 && y < h && xx >= 0 && xx < w;
-    cp_async16(dst + swz(p, ch, C, p),
+    cp_async16(dst + swz<C>(p, ch, p),
                ok ? src + ((size_t)y * w + xx) * 2 * C + c0 + ch * 8 : src,
                ok ? 16 : 0);
   }
@@ -80,9 +89,19 @@ __device__ inline void load_half(uint32_t dst, const bf16* __restrict__ src,
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
+stage3_fused_kernel(const bf16* __restrict__ x, int hin, int win,
+                    StageDims d, const bf16* __restrict__ ws,
+                    const float* __restrict__ sb, bf16* __restrict__ out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  fused_stage<GH_B, FUSED_C>(x, hin, win, d, ws, sb, out, smem);
+}
+
+template <int C>
+__global__ void __launch_bounds__(THREADS, 1)
 stage3_entry_kernel(const bf16* __restrict__ x, int hin, int win,
                     StageDims d, const bf16* __restrict__ ws,
                     const float* __restrict__ sb, bf16* __restrict__ ms) {
+  static_assert(C % 16 == 0, "launch B zeroes no chunk for a ragged K");
   extern __shared__ __align__(128) unsigned char smem[];
   const int hout = hin / 2, wout = win / 2;
   const Layout L = layout<GH_A>(d);
@@ -94,16 +113,17 @@ stage3_entry_kernel(const bf16* __restrict__ x, int hin, int win,
   entry_part<GH_A, C>(pipe, x, hin, win, st_chain::weight_ptrs(ws, sb, d),
                       oy0, ox0, smem, L, to_buffer<2 * C>(smem, L.m));
   __syncthreads();
-  store_tile(smem, L.m, 0, GH_A, GW, 2 * C, oy0, ox0, hout, wout, ms);
+  store_tile<2 * C>(smem, L.m, 0, GH_A, GW, oy0, ox0, hout, wout, ms);
 }
 
+template <int C>
 __global__ void __launch_bounds__(THREADS, 1)
 stage3_chain_kernel(const bf16* __restrict__ ms, int hout, int wout,
                     StageDims d, const bf16* __restrict__ ws, int first,
                     const float* __restrict__ sb, bf16* __restrict__ out) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int e = d.nb, th = GH_B - 2 * e, tw = GW - 2 * e;
-  const Layout L = layout_b();
+  const Layout L = layout_b<C>();
   const int oy0 = blockIdx.y * th, ox0 = blockIdx.x * tw;
   const int ry0 = oy0 - e, rx0 = ox0 - e;       // region origin
   ms += (size_t)blockIdx.z * hout * wout * 2 * C;
@@ -112,7 +132,7 @@ stage3_chain_kernel(const bf16* __restrict__ ms, int hout, int wout,
 
   // main of the region, zeros outside the map: only conv1 reads it there,
   // and conv1's outputs outside the map are zeroed
-  load_half(base + L.m, ms, hout, wout, 0, ry0, rx0);
+  load_half<C>(base + L.m, ms, hout, wout, 0, ry0, rx0);
   Pipe pipe = make_pipe(ws, first, chain_slices(d) - first, base + L.ring);
   pipe.start();
   chain_part<GH_B, C>(
@@ -122,7 +142,7 @@ stage3_chain_kernel(const bf16* __restrict__ ms, int hout, int wout,
         // short into conv1's buffer once every warp is past the last conv2;
         // the final GEMM's first barrier makes it visible
         __syncthreads();
-        load_half(base + L.s, ms, hout, wout, C, ry0, rx0);
+        load_half<C>(base + L.s, ms, hout, wout, C, ry0, rx0);
         cp_async_wait<0>();
       },
       [&](int p, int n, uint32_t v) {
@@ -135,45 +155,81 @@ stage3_chain_kernel(const bf16* __restrict__ ms, int hout, int wout,
       });
 }
 
+// Stage 3 at C in {96, 128}: launch A, then launch B from slice b_slice.
+template <int C>
+cudaError_t launch_split(const bf16* x, int n, int h, int w, StageDims d,
+                         const bf16* wt, const float* s, int b_slice,
+                         bf16* msb, bf16* out, cudaStream_t st) {
+  const size_t ba = layout<GH_A>(d).total, bb = layout_b<C>().total;
+  if (ba > st_chain::MAX_SMEM || bb > st_chain::MAX_SMEM)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      stage3_entry_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(ba));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(stage3_chain_kernel<C>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bb));
+  if (err != cudaSuccess) return err;
+  const int hout = h / 2, wout = w / 2;
+  dim3 grid_a((wout + GW - 1) / GW, (hout + GH_A - 1) / GH_A, n);
+  stage3_entry_kernel<C><<<grid_a, THREADS, ba, st>>>(x, h, w, d, wt, s,
+                                                      msb);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int th = GH_B - 2 * d.nb, tw = GW - 2 * d.nb;
+  dim3 grid_b((wout + tw - 1) / tw, (hout + th - 1) / th, n);
+  stage3_chain_kernel<C><<<grid_b, THREADS, bb, st>>>(msb, hout, wout, d, wt,
+                                                      b_slice, s, out);
+  return cudaGetLastError();
+}
+
+// Stage 3 at C = FUSED_C: one launch.
+cudaError_t launch_fused(const bf16* x, int n, int h, int w, StageDims d,
+                         const bf16* wt, const float* s, bf16* out,
+                         cudaStream_t st) {
+  const size_t bytes = layout<GH_B>(d).total;
+  if (bytes > st_chain::MAX_SMEM) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      stage3_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  const int hout = h / 2, wout = w / 2;
+  const int th = GH_B - 2 * d.nb, tw = GW - 2 * d.nb;
+  dim3 grid((wout + tw - 1) / tw, (hout + th - 1) / th, n);
+  stage3_fused_kernel<<<grid, THREADS, bytes, st>>>(x, h, w, d, wt, s, out);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x: (n, h, w, cin); weights: the packed slices (ops/stage2_cuda.py
 // pack_slices); b_slice: the first slice of launch B (the first
 // bottleneck's, slice_offsets in ops/stage2_cuda.py); ms: (n, h/2, w/2,
-// 2 mid) scratch; out: (n, h/2, w/2, cout).  Built for cin = mid = cout / 2
-// = 128.
+// 2 mid) scratch (unused at cin = 64, one launch); out: (n, h/2, w/2,
+// cout).  Built for cin = mid = cout / 2 in {64, 96, 128}.
 ST_EXPORT int st_stage3(const void* x, int n, int h, int w, int cin,
                         int cout, int mid, int nb, const void* weights,
                         const void* sb, int b_slice, void* ms, void* out,
                         void* stream) {
   const StageDims d{cin, cout, mid, nb};
-  if (cin != C || mid != C || cout != 2 * C || nb < 1 || 2 * nb >= GH_B ||
-      n < 1 || b_slice != entry_slices(d))
+  if (mid != cin || cout != 2 * cin || nb < 1 || 2 * nb >= GH_B || n < 1 ||
+      b_slice != entry_slices(d))
     return cudaErrorInvalidValue;
-  const size_t ba = layout<GH_A>(d).total, bb = layout_b().total;
-  if (ba > st_chain::MAX_SMEM || bb > st_chain::MAX_SMEM)
-    return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      stage3_entry_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(ba));
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(stage3_chain_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bb));
-  if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int hout = h / 2, wout = w / 2;
+  const bf16* xp = static_cast<const bf16*>(x);
   const bf16* wt = static_cast<const bf16*>(weights);
   const float* s = static_cast<const float*>(sb);
   bf16* msb = static_cast<bf16*>(ms);
-  dim3 grid_a((wout + GW - 1) / GW, (hout + GH_A - 1) / GH_A, n);
-  stage3_entry_kernel<<<grid_a, THREADS, ba, st>>>(
-      static_cast<const bf16*>(x), h, w, d, wt, s, msb);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int th = GH_B - 2 * nb, tw = GW - 2 * nb;
-  dim3 grid_b((wout + tw - 1) / tw, (hout + th - 1) / th, n);
-  stage3_chain_kernel<<<grid_b, THREADS, bb, st>>>(
-      msb, hout, wout, d, wt, b_slice, s, static_cast<bf16*>(out));
-  return cudaGetLastError();
+  bf16* o = static_cast<bf16*>(out);
+  switch (cin) {
+    case FUSED_C:
+      return launch_fused(xp, n, h, w, d, wt, s, o, st);
+    case 96:
+      return launch_split<96>(xp, n, h, w, d, wt, s, b_slice, msb, o, st);
+    case 128:
+      return launch_split<128>(xp, n, h, w, d, wt, s, b_slice, msb, o, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

@@ -6,8 +6,9 @@ datasets (``datasets/coco_disparity.py:12-111``, image level;
 ``mot_disp_dataset.py:10-105``, video level with per-instance 3D
 location/visibility; ``mot_kitti_dataset.py``), with the same path
 conventions: AirSim file names derive ``disparity``/``depth`` paths by
-replacing ``left``; KITTI replaces ``img2``.  The DanceTrack reader and the
-training samplers are not ported (ROADMAP.md Queue 1 item 3).
+replacing ``left``; KITTI replaces ``img2``.  The DanceTrack reader is
+``data/dancetrack.py``; the training samplers are not ported (ROADMAP.md
+Queue 1 item 3).
 """
 from __future__ import annotations
 

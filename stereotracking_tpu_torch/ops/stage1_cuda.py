@@ -17,8 +17,9 @@ x width and GEMM inner loop: ``r16x16_wmma``, ``r8x16_wmma`` (wmma bf16
 tensor cores, B fragments from device memory, ``csrc/csp_chain.cuh``),
 ``r16x16_fma``, ``r8x16_fma`` (scalar float32 FMAs of the same operands),
 ``r16x16_mma``, ``r8x16_mma`` (``mma.sync`` from swizzled shared memory,
-weights through a ``cp.async`` ring, ``csrc/mma_chain.cuh``; built for the
-flagship's C = 32 only).  ``PRODUCTION`` is the one the main path runs:
+weights through a ``cp.async`` ring, ``csrc/mma_chain.cuh``; built for C in
+``MMA_WIDTHS``: 16, 24 and 32, YOLOX-nano's, -tiny's and the flagship's
+YOLOX-s's).  ``PRODUCTION`` is the one the main path runs:
 ``r8x16_mma``, the fastest on an H100 80GB HBM3 at 700 W at 8 streams of
 1080p (``chip_smoke.py``'s probe: 1.80 ms against 2.03 for ``r16x16_mma``,
 8.36 and 10.68 for the two wmma regions, 42-44 for the FMA ones); its
@@ -36,12 +37,12 @@ from typing import Optional
 
 from .stage2_cuda import (StageKernel, chain_dims_problem, check_aligned,
                           check_chain_dims, check_stage_input,
-                          kernel_dims_problem, nhwc_plain)
+                          flat_dims_problem, kernel_dims_problem, nhwc_plain)
 
 VARIANTS = ('r16x16_wmma', 'r8x16_wmma', 'r16x16_fma', 'r8x16_fma',
             'r16x16_mma', 'r8x16_mma')
 PRODUCTION = 'r8x16_mma'
-MMA_WIDTHS = (32,)      # C the mma.sync variants are built for
+MMA_WIDTHS = (16, 24, 32)   # C the mma.sync variants are built for
 NUM_BLOCKS = 1          # bottlenecks the kernel runs, as the Pallas kernel
 
 
@@ -88,6 +89,9 @@ def _launch(rgb, dsp, k_rgb: StageKernel, k_dsp: StageKernel, variant: str,
         check_aligned(f'{counter} {variant}', rgb, dsp)
         w_rgb, w_dsp = k_rgb.ws, k_dsp.ws
     else:                            # the flat layout of weight_ptrs
+        problem = flat_dims_problem(k_rgb.dims)
+        if problem:
+            raise ValueError(f'{counter} {variant}: {problem}')
         w_rgb, w_dsp = k_rgb.w, k_dsp.w
     _kernels.require_cuda(counter, rgb, dsp, w_rgb, k_rgb.sb, w_dsp,
                           k_dsp.sb)

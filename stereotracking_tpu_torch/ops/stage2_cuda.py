@@ -10,11 +10,12 @@ applies folded BatchNorm and SiLU in float32 and rounds to bfloat16 once;
 the residual sum rounds to bfloat16 as well.
 
 The stage-2 kernel (``csrc/stage2.cu``) is built for YOLOX's stage-2
-shape, C_in = mid = C_out / 2, at C_in 32 or 64 (the flagship's stage 2 is
-(64, 128, 3 blocks)); it reads the weights as 64 x 64 slices in its run
-order (``pack_slices``).  Stage 1 and stage 3 (128, 256, 3) run their own
-kernels (``ops/stage1_cuda.py``, ``ops/stage3_cuda.py``) on the same
-slices (``slice_offsets`` says where each GEMM starts); the stage-1
+shape, C_in = mid = C_out / 2, at C_in 32, 48 or 64 (YOLOX-nano, -tiny and
+-s; the flagship's stage 2 is (64, 128, 3 blocks)); it reads the weights as
+64 x 64 slices in its run order (``pack_slices``), each GEMM's K and N
+zero-padded to multiples of 64.  Stage 1 and stage 3 (128, 256, 3) run
+their own kernels (``ops/stage1_cuda.py``, ``ops/stage3_cuda.py``) on the
+same slices (``slice_offsets`` says where each GEMM starts); the stage-1
 probe's wmma and FMA variants read the flat layout of ``pack_stage``.
 Input and output are canonical NHWC bf16 with a leading stream axis, one
 launch for all S streams: (S, H, W, C_in) -> (S, H/2, W/2, C_out).
@@ -73,27 +74,41 @@ class StageKernel(NamedTuple):
 
 
 SLICE = 64   # a weight slice of the stage-2 kernel: SLICE k x SLICE n
-STAGE_CSP_WIDTHS = (32, 64)   # C_in the stage-2 kernel is built for
+STAGE_CSP_WIDTHS = (32, 48, 64)   # C_in the stage-2 kernel is built for
 MAX_BLOCKS = 7                # bottlenecks a stage kernel runs
 
 
 def kernel_dims_problem(dims) -> Optional[str]:
     """What the stage kernels need that stage dims (C_in, C_out, mid,
-    num_blocks) lack, or None: channel counts that are multiples of 16 and
-    1 to MAX_BLOCKS blocks."""
-    if any(c % 16 for c in dims[:3]) or not 1 <= dims[3] <= MAX_BLOCKS:
-        return (f'the kernel needs channel counts that are multiples of 16 '
+    num_blocks) lack, or None: channel counts that are multiples of 8 (16
+    for the stage-1 probe's wmma and FMA variants, ``flat_dims_problem``)
+    and 1 to MAX_BLOCKS blocks."""
+    if any(c % 8 for c in dims[:3]) or not 1 <= dims[3] <= MAX_BLOCKS:
+        return (f'the kernel needs channel counts that are multiples of 8 '
                 f'and 1-{MAX_BLOCKS} blocks, got {tuple(dims)}')
+    return None
+
+
+def flat_dims_problem(dims) -> Optional[str]:
+    """What the kernels on the flat weights (``csrc/csp_chain.cuh``: the
+    stage-1 probe's wmma and FMA variants) need beyond
+    ``kernel_dims_problem``: channel counts that are multiples of 16."""
+    if any(c % 16 for c in dims[:3]):
+        return (f'the wmma and FMA variants need channel counts that are '
+                f'multiples of 16, got {tuple(dims)}')
     return None
 
 
 def chain_dims_problem(dims, widths) -> Optional[str]:
     """What the mma_chain.cuh kernels built for C_in in ``widths`` need
-    that stage dims lack, or None: C_in = mid = C_out / 2 in ``widths``."""
+    that stage dims lack, or None: C_in = mid = C_out / 2 in ``widths``.
+    Wider stages (widen_factor 0.75 and 1.25 at deepen 0.33) are ROADMAP.md
+    Queue 3 item 1."""
     cin, cout, mid, _ = dims
     if cin not in widths or mid != cin or cout != 2 * cin:
         return (f'the kernel is built for C_in = mid = C_out / 2 in '
-                f'{tuple(widths)}, got {tuple(dims)}')
+                f'{tuple(widths)}, got {tuple(dims)}; other widths are '
+                f'ROADMAP.md Queue 3 item 1')
     return None
 
 
@@ -146,7 +161,8 @@ def pack_slices(wts: StageWeights) -> torch.Tensor:
     """(slices, SLICE, SLICE) bf16: each GEMM's (K, N) matrix zero-padded
     to multiples of SLICE and cut into tiles, N passes outer, K slices
     inner, GEMMs in run order: the stream the stage-2 kernel copies into
-    its shared-memory ring (csrc/mma_chain.cuh)."""
+    its shared-memory ring (csrc/mma_chain.cuh).  The zero rows past K are
+    what a K step past a C = 24 GEMM's end multiplies."""
     tiles = []
     for m in _gemm_mats(wts):
         k, n = m.shape

@@ -6,16 +6,18 @@ stage kernel on the stage-3 weights (the flagship's 128 -> 256 channels,
 mid 128, 3 bottlenecks).  It computes what ``stage_csp`` computes, with the
 same bf16 rounding points, so the plain version is ``stage_csp_plain``.
 
-At these widths the one-launch kernel's 16 x 16 region does not fit a
+At C_in 96 and 128 the one-launch kernel's 16 x 16 region does not fit a
 block's shared memory, so ``csrc/stage3.cu`` runs the two halves of the
 ``mma_chain.cuh`` chain as two launches: launch A (the entry conv and
 main|short per 8 x 16 tile) writes [main | short] (S, H/2, W/2, C_out) bf16
 to a scratch buffer that this wrapper allocates; launch B runs the
 bottlenecks and the final 1x1 on 16 x 16 regions of main with a 3-ring
 halo, streaming the packed weight slices from the first bottleneck's
-(``slice_offsets``), which this wrapper passes.  The kernel is built for
-C_in = mid = C_out / 2 = 128.  The two launches count as one launch of the
-stage-3 kernel.
+(``slice_offsets``), which this wrapper passes.  At C_in 64 (YOLOX-nano)
+the stage fits one launch (``stage3_fused_kernel``, the stage-2 kernel's
+chain).  The kernel is built for C_in = mid = C_out / 2 in
+``STAGE3_WIDTHS``.  Its launches count as one launch of the stage-3
+kernel.
 """
 from __future__ import annotations
 
@@ -29,7 +31,8 @@ from .stage2_cuda import (CHAIN_GEMM, StageKernel, chain_dims_problem,
                           stage_csp_plain)
 
 stage3_csp_plain = stage_csp_plain
-STAGE3_WIDTHS = (128,)      # C_in the stage-3 kernel is built for
+STAGE3_WIDTHS = (64, 96, 128)   # C_in the stage-3 kernel is built for
+FUSED_WIDTHS = (64,)            # C_in it runs in one launch
 
 
 def dims_problem(dims) -> Optional[str]:
@@ -41,7 +44,8 @@ def dims_problem(dims) -> Optional[str]:
 
 def stage3_csp(x: torch.Tensor, k: StageKernel) -> torch.Tensor:
     """(S, H, W, C_in) bf16 -> (S, H/2, W/2, C_out) bf16 through the
-    two-launch stage kernel, both launches covering the S streams.
+    stage-3 kernel (one launch at C_in 64, two at 96 and 128), each launch
+    covering the S streams.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel."""
     check_stage_input('stage3_csp', x, k)
@@ -50,7 +54,8 @@ def stage3_csp(x: torch.Tensor, k: StageKernel) -> torch.Tensor:
     check_chain_dims('stage3_csp', k, STAGE3_WIDTHS)
     check_aligned('stage3_csp', x)
     n, h, w = x.shape[:3]
-    ms = torch.empty((n, h // 2, w // 2, 2 * k.dims[2]),
+    split = k.dims[0] not in FUSED_WIDTHS
+    ms = torch.empty((n, h // 2, w // 2, 2 * k.dims[2]) if split else (0,),
                      dtype=torch.bfloat16, device=x.device)
     return launch_stage('st_stage3', 'stage3', x, k, ms,
                         ints=(slice_offsets(k.dims)[CHAIN_GEMM],))

@@ -3,6 +3,7 @@
     python -m stereotracking_tpu_torch.tools.test CONFIG [--checkpoint PTH]
         [--work-dir DIR] [--depth-thr M] [--ignore-depth] [--max-videos N]
         [--dump-txt] [--interpolate] [--aflink PT] [--results-csv CSV]
+        [--show-dir DIR [--show-interval N] [--show-errors]]
         [--bf16] [--streams N] [--stage-frames] [--cfg-options K=V ...]
         [--device cuda|cpu]
 
@@ -11,11 +12,16 @@ streams ground truth and predictions into the MOT metrics (HOTA / CLEAR /
 Identity under the 0-``depth_thr`` m depth protocol) and COCO bbox mAP, and
 writes ``metrics.json`` (every metric plus ``fps``), the logger's
 ``scalars.jsonl``, and with the flags the MOT txt files and the per-frame
-depth CSV.  Before scoring, ``--aflink PT`` re-links each video's
-tracklets (``evaluation.aflink``, a checkpoint of ``tools.train_aflink``)
-and then ``--interpolate`` fills their gaps (``evaluation.postprocess``),
-in the JAX CLI's order.  Runs on the card unless ``--device cpu``; without a card
-``--device cuda`` raises.
+depth CSV.  ``--show-dir DIR`` draws every ``--show-interval``-th frame of
+each video (frame index 0, N, 2N, ...) into ``DIR/<video>/<frame>.jpg``:
+the ground-truth panel over the tracked boxes, or with ``--show-errors``
+the TP / FP / FN / ID-switch coding (``visualization``), from the
+reader's host image and the step's fetched result, so drawing adds no
+synchronisation to the step.  Before scoring, ``--aflink PT`` re-links
+each video's tracklets (``evaluation.aflink``, a checkpoint of
+``tools.train_aflink``) and then ``--interpolate`` fills their gaps
+(``evaluation.postprocess``), in the JAX CLI's order.  Runs on the card
+unless ``--device cpu``; without a card ``--device cuda`` raises.
 
 ``evaluate`` is the loop: it takes a model, a dataset object (``videos``,
 ``video_name``, ``video_frames``, ``frame_info``, ``load_frame``), the
@@ -29,14 +35,15 @@ the sequential and ``--streams`` loops would score differently, where the
 JAX contract has them equal; PyTorch's own convolutions are
 batch-invariant.  Float32 keeps cuDNN.
 
-The datasets are ``MOTDispDataset`` and ``MOTKittiDataset`` (the
-``img2`` naming).  The MOT metric is ``MOTDroneMetrics`` for every config,
+The datasets are ``MOTDispDataset``, ``MOTKittiDataset`` (the ``img2``
+naming) and ``DanceTrackDataset`` (monocular: depth ignored in scoring, as
+the JAX CLI does).  The MOT metric is ``MOTDroneMetrics`` for every config,
 as the JAX CLI has it: both ignore ``test_evaluator``.  A config with
 camera-motion compensation runs in the sequential loop; ``--streams N``
-refuses it (``MultiStreamTracker`` does).  Not ported, and refused with
-``NotImplementedError``: ``--show-dir`` / ``--show-interval`` /
-``--show-errors``, ``--launcher`` / ``--dist-*`` and the other dataset
-types (ROADMAP.md Queue 1 item 3).
+refuses it (``MultiStreamTracker`` does).  Refused with
+``NotImplementedError``: ``--launcher`` / ``--dist-*`` (several processes:
+ROADMAP.md Queue 1 item 6) and the other dataset types (the task zoo,
+Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -52,7 +59,8 @@ import torch
 
 from ..apis.inference import init_model, raw_frame
 from ..config import apply_overrides, load_config
-from ..data import MOTDispDataset, MOTKittiDataset, PrefetchIterator
+from ..data import (DanceTrackDataset, MOTDispDataset, MOTKittiDataset,
+                    PrefetchIterator)
 from ..data import transforms as T
 from ..evaluation import CocoMAPEvaluator, MOTDroneMetrics
 from ..models.mot import FrameResult, fetch_result
@@ -61,10 +69,11 @@ from ..utils.collect_results import ResultsCSV
 from ..utils.devices import to_device
 from ..utils.obs import build_logger
 
-NOT_PORTED = 'is not ported (ROADMAP.md Queue 1 item 3)'
+NOT_PORTED = ('is not ported (evaluation over several processes: '
+              'ROADMAP.md Queue 1 item 6)')
 # flags of the JAX CLI that the port accepts only to refuse
-_REFUSED = ('show_dir', 'show_interval', 'show_errors', 'launcher',
-            'dist_coordinator', 'dist_num_processes', 'dist_process_id')
+_REFUSED = ('launcher', 'dist_coordinator', 'dist_num_processes',
+            'dist_process_id')
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -83,6 +92,15 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help='AFLink tracklet re-linking before scoring, with a '
                         'checkpoint of tools.train_aflink (.pt)')
     p.add_argument('--results-csv', default=None)
+    p.add_argument('--show-dir', default=None,
+                   help='draw every --show-interval-th frame of each video '
+                        'into DIR/<video>/<frame>.jpg: the ground truth '
+                        'over the predictions')
+    p.add_argument('--show-interval', type=int, default=30,
+                   help='frame interval for --show-dir')
+    p.add_argument('--show-errors', action='store_true',
+                   help='with --show-dir: color-code TP / FP / FN / ID '
+                        'switches instead of the ground-truth panel')
     p.add_argument('--bf16', action='store_true',
                    help='bfloat16 compute for the detector layers that run '
                         'on the modules')
@@ -96,9 +114,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument('--cfg-options', nargs='*', default=None)
     p.add_argument('--device', default='cuda',
                    help="'cuda' (default) or 'cpu'")
-    p.add_argument('--show-errors', action='store_true', help=NOT_PORTED)
-    for flag in ('--show-dir', '--show-interval', '--launcher',
-                 '--dist-coordinator', '--dist-num-processes',
+    for flag in ('--launcher', '--dist-coordinator', '--dist-num-processes',
                  '--dist-process-id'):
         p.add_argument(flag, default=None, help=NOT_PORTED)
     args = p.parse_args(argv)
@@ -111,12 +127,18 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     return args
 
 
-def build_dataset(cfg: dict) -> MOTDispDataset:
+def build_dataset(cfg: dict):
     """The config's ``test_dataloader.dataset``: ``MOTDispDataset`` (with
-    its ``path_token`` when the config gives one) or ``MOTKittiDataset``
-    (the ``img2`` token), as the JAX CLI builds them."""
+    its ``path_token`` when the config gives one), ``MOTKittiDataset`` (the
+    ``img2`` token) or ``DanceTrackDataset`` (``data_root``, ``split``,
+    ``visibility_thr``), as the JAX CLI builds them."""
     ds_cfg = dict(cfg['test_dataloader']['dataset'])
     ds_type = ds_cfg.pop('type', 'MOTDispDataset')
+    if ds_type == 'DanceTrackDataset':
+        return DanceTrackDataset(
+            data_root=ds_cfg.get('data_root', ''),
+            split=ds_cfg.get('split', 'val'),
+            visibility_thr=ds_cfg.get('visibility_thr', -1.0))
     kw = {}
     if ds_type == 'MOTKittiDataset':
         ds_cls = MOTKittiDataset
@@ -125,7 +147,9 @@ def build_dataset(cfg: dict) -> MOTDispDataset:
         if 'path_token' in ds_cfg:
             kw['path_token'] = ds_cfg['path_token']
     else:
-        raise NotImplementedError(f'dataset type {ds_type!r} {NOT_PORTED}')
+        raise NotImplementedError(
+            f'dataset type {ds_type!r} is not ported (the task zoo: '
+            f'ROADMAP.md Queue 1 item 8)')
     return ds_cls(
         ann_file=os.path.join(ds_cfg.get('data_root', ''),
                               ds_cfg['ann_file']),
@@ -152,6 +176,51 @@ def batch_invariant_convs(bf16: bool, device):
         yield off
     finally:
         torch.backends.cudnn.enabled = prev
+
+
+class FrameShow:
+    """``--show-dir``: every ``interval``-th frame of a video drawn as the
+    JAX CLI draws it (``draw_gt_pred``, or ``draw_mot_errors`` carrying
+    each video's or stream's gt id -> predicted id matches from one shown
+    frame to the next), from the reader's host image and the host result,
+    into ``<show_dir>/<video>/<frame:06d>.jpg``."""
+
+    def __init__(self, show_dir: str, interval: int, errors: bool):
+        from ..visualization import TrackVisualizer
+        self.show_dir, self.interval, self.errors = (show_dir, interval,
+                                                     errors)
+        self.visualizer = TrackVisualizer()
+
+    def __call__(self, video: str, t: int, sample: dict, res: FrameResult,
+                 prev_match: dict) -> dict:
+        """Draws frame t if the interval says so; returns the matches to
+        carry to the next shown frame."""
+        if t % self.interval:
+            return prev_match
+        from PIL import Image
+        from ..visualization import draw_mot_errors
+        tv = res.track_valid
+        out = os.path.join(self.show_dir, video)
+        os.makedirs(out, exist_ok=True)
+        img = sample['img'].astype(np.uint8)
+        if self.errors:
+            frame_img, prev_match = draw_mot_errors(
+                img, sample['gt_bboxes'], sample['gt_instance_ids'],
+                res.track_bboxes[tv], res.track_ids[tv], prev_match)
+        else:
+            frame_img = self.visualizer.draw_gt_pred(
+                img, sample['gt_bboxes'], sample['gt_instance_ids'],
+                res.track_bboxes[tv], res.track_ids[tv],
+                res.track_scores[tv])
+        Image.fromarray(frame_img).save(os.path.join(out, f'{t:06d}.jpg'))
+        return prev_match
+
+
+def frame_show(args) -> Optional[FrameShow]:
+    """The ``--show-dir`` writer of ``args``, or None without the flag."""
+    if not args.show_dir:
+        return None
+    return FrameShow(args.show_dir, args.show_interval, args.show_errors)
 
 
 def _record(video: str, t: int, sample: dict, res: FrameResult,
@@ -204,10 +273,12 @@ def _sequential_eval(args, model, dataset, videos, img_scale, f,
                      mot_metric, coco_metric, csv_dump, logger):
     """One video at a time through ``model.track_raw``."""
     n_frames = 0
+    show = frame_show(args)
     t_start = time.perf_counter()
     for vid in videos:
         vname = dataset.video_name(vid)
         frame_ids = dataset.video_frames(vid)
+        prev_match = {}
         loader = PrefetchIterator(frame_ids, dataset.load_frame,
                                   num_workers=4)
         for local_f, sample in enumerate(loader):
@@ -219,8 +290,11 @@ def _sequential_eval(args, model, dataset, videos, img_scale, f,
                 scale_factor=sample.get('scale_factor', (1.0, 1.0)),
                 depth_raw=sample.get('depth_postp'))
             n_frames += 1
-            _record(vname, local_f, sample, fetch_result(res)(), mot_metric,
-                    coco_metric, csv_dump)
+            res = fetch_result(res)()
+            _record(vname, local_f, sample, res, mot_metric, coco_metric,
+                    csv_dump)
+            if show is not None:
+                prev_match = show(vname, local_f, sample, res, prev_match)
         print(f'[test] video {vname}: {len(frame_ids)} frames done',
               flush=True)
         if logger is not None:
@@ -246,6 +320,7 @@ def _multistream_eval(args, model, dataset, videos, img_scale, f,
     S = args.streams
     ms = MultiStreamTracker(model.cfg, n_streams=S, module=model.module,
                             device=model.device)
+    show = frame_show(args)
     n_frames = 0
     elapsed = 0.0
     for g0 in range(0, len(videos), S):
@@ -255,6 +330,7 @@ def _multistream_eval(args, model, dataset, videos, img_scale, f,
         frame_lists = [dataset.video_frames(v) for v in group]
         names = [dataset.video_name(v) for v in group]
         L = max(len(frame_lists[s]) for s in range(real))
+        prev_match = [{} for _ in range(real)]
 
         def load_t(t):
             samples = []
@@ -289,9 +365,12 @@ def _multistream_eval(args, model, dataset, videos, img_scale, f,
                 if t >= len(frame_lists[s]):
                     continue
                 n_frames += 1
-                _record(names[s], t, samples[s],
-                        FrameResult(*(x[s] for x in res)), mot_metric,
+                one = FrameResult(*(x[s] for x in res))
+                _record(names[s], t, samples[s], one, mot_metric,
                         coco_metric, csv_dump)
+                if show is not None:
+                    prev_match[s] = show(names[s], t, samples[s], one,
+                                         prev_match[s])
 
         t_start = time.perf_counter()
         pending = None            # one step behind: step t is issued
@@ -365,8 +444,12 @@ def main(argv: Optional[List[str]] = None) -> dict:
     img_scale = cfg.get('img_scale', (first['height'], first['width']))
     model = init_model(cfg, args.checkpoint, device=args.device,
                        dtype=torch.bfloat16 if args.bf16 else None)
+    # DanceTrack is monocular: no meaningful depth on either side
     mot_metric = MOTDroneMetrics(
-        depth_thr=args.depth_thr, ignore_depth=args.ignore_depth,
+        depth_thr=args.depth_thr,
+        ignore_depth=(args.ignore_depth
+                      or cfg['test_dataloader']['dataset'].get('type')
+                      == 'DanceTrackDataset'),
         outfile_dir=os.path.join(args.work_dir, 'mot_txt'))
     coco_metric = CocoMAPEvaluator(
         num_classes=len(cfg.get('classes', ('x',))))

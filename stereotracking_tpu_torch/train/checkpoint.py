@@ -18,7 +18,7 @@ from typing import Any, Optional, Tuple
 import torch
 
 from ..utils.checkpoint import DETECTOR_FORMAT
-from .train_state import TrainState
+from .train_state import TRAIN_FORMAT, TrainState
 
 
 def save_checkpoint(path: str, obj: Any) -> None:
@@ -81,11 +81,18 @@ class CheckpointManager:
         return state, epoch
 
 
-def extract_detector_variables(state: TrainState) -> dict:
-    """The detector export: the EMA weights and BatchNorm statistics
-    (reference extract_det_model.py + EMAHook(update_buffers=True)) as a
-    detector state dict on the CPU, marked as this package's format."""
+def extract_detector_variables(state, ema: bool = True) -> dict:
+    """The detector export of ``state`` (a ``TrainState``, or its
+    ``state_dict()`` as a train checkpoint holds it): the EMA weights and
+    BatchNorm statistics (reference extract_det_model.py +
+    EMAHook(update_buffers=True)), or with ``ema=False`` the trained
+    module's own, as a detector state dict on the CPU, marked as this
+    package's format."""
+    sd = state.state_dict() if isinstance(state, TrainState) else state
+    if not isinstance(sd, dict) or sd.get('format') != TRAIN_FORMAT:
+        raise ValueError(f'not a train state of this package (format '
+                         f'{TRAIN_FORMAT!r})')
     return dict(
         state_dict={k: v.detach().cpu() for k, v in
-                    state.ema.state_dict().items()},
-        meta=dict(format=DETECTOR_FORMAT, step=state.step))
+                    sd['ema' if ema else 'model'].items()},
+        meta=dict(format=DETECTOR_FORMAT, step=sd['step']))

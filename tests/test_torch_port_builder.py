@@ -4,8 +4,9 @@
 type), so the CUDA-device cases run here without a card.
 Kernel support per width and depth is stated below from the kernels'
 documented limits (stem O in {8, 16, 24, 32, 48, 64, 80}; stage 1 C_in = mid =
-C_out / 2 = 32 with one block; stage 2 C_in in {32, 64}; stage 3 C_in =
-128) and held against what the resolver reads from the wrappers.  One
+C_out / 2 in {16, 24, 32} with one block; stage 2 C_in in {32, 48, 64};
+stage 3 C_in in {64, 96, 128}; stages 2 and 3 with 1-7 blocks) and held
+against what the resolver reads from the wrappers.  One
 mix the JAX builder accepts (stem and stage-1 kernels, stage 2 on the
 float32 modules) also runs end to end: its head maps within 3e-2 of their
 largest magnitude of the JAX detector resumed from the Pallas stage-1
@@ -43,10 +44,10 @@ from test_torch_port_bridge import (H, W, WIDEN, port_detector,
 KEYS = tuple(f'{s}_backend' for s in StageBackends._fields)
 # (widen, deepen) -> does the kernel take (stem, stage 1, stage 2, stage 3)
 SUPPORT = {
-    (0.25, 0.33): (True, False, True, False),    # O 16; (32, 64, 32, 3)
-    (0.25, 0.67): (True, False, True, False),    # stage 1 has 2 blocks
-    (0.375, 0.33): (True, False, False, False),  # O 24, C 48, 96, 192
-    (0.375, 0.67): (True, False, False, False),
+    (0.25, 0.33): (True, True, True, True),      # O 16; C 16, 32, 64
+    (0.25, 0.67): (True, False, True, True),     # stage 1 has 2 blocks
+    (0.375, 0.33): (True, True, True, True),     # O 24; C 24, 48, 96
+    (0.375, 0.67): (True, False, True, True),
     (0.5, 0.33): (True, True, True, True),       # the flagship
     (0.5, 0.67): (True, False, True, True),      # 6 blocks in stages 2-3
     (0.75, 0.33): (True, False, False, False),   # O 48, C 96, 192, 384
@@ -101,7 +102,7 @@ def test_resolution_table_on_a_cuda_device(wf_df):
                     assert got == want, mix
 
 
-@pytest.mark.parametrize('wf_df', [(0.25, 0.33), (0.75, 0.33),
+@pytest.mark.parametrize('wf_df', [(0.25, 0.67), (0.75, 0.33),
                                    (0.5, 0.67)])
 def test_explicit_kernel_at_unsupported_dims_raises_at_build(monkeypatch,
                                                             wf_df):
@@ -126,11 +127,13 @@ def test_explicit_kernel_at_unsupported_dims_raises_at_build(monkeypatch,
 @pytest.mark.parametrize('widen', [0.375, 0.75, 1.25])
 def test_stem_kernel_runs_every_yolox_width(widen):
     """YOLOX-tiny, -m and -x (stem O = 24, 48, 80): the stem kernel takes
-    their width; with every stage 'auto' on a CUDA device the stem runs
-    its kernel and stage 1, whose kernel is built for C = 32 only, moves
-    to the float32 modules with the builder's warning (one more for each
-    later stage whose own dims would move it), and every stage after it
-    follows."""
+    their width.  With every stage 'auto' on a CUDA device, YOLOX-tiny's
+    stages 1 and 2 run their kernels too (stage 3 'auto' stays on the
+    modules, as the JAX builder decides) with no warning; at -m's and -x's
+    widths stage 1's kernel is not built (C = 48, 80), so stage 1 moves to
+    the float32 modules with the builder's warning, naming the roadmap
+    item (one more for each later stage whose own dims would move it),
+    and every stage after it follows."""
     from stereotracking_tpu_torch.ops import stem_cuda
     o = int(64 * widen)
     assert o in stem_cuda.STEM_WIDTHS and stem_cuda.dims_problem(o) is None
@@ -139,12 +142,20 @@ def test_stem_kernel_runs_every_yolox_width(widen):
     cfg = {'detector': {'backbone': {'widen_factor': widen,
                                      'deepen_factor': 0.33}},
            **{k: 'auto' for k in KEYS}}
-    with pytest.warns(UserWarning) as caught:
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
         got = resolve_stage_backends(cfg, 'cuda')
-    assert got == StageBackends('cuda', 'torch', 'torch', 'torch')
     said = [str(w.message) for w in caught]
-    assert said[0].startswith("stage1_backend='auto' runs on the float32 "
-                              'modules'), said
+    if widen == 0.375:
+        assert got == StageBackends('cuda', 'cuda', 'cuda', 'torch')
+        assert not said, said
+        assert resolve_stage_backends({**cfg, 'stage3_backend': 'cuda'},
+                                      'cuda') == StageBackends(*['cuda'] * 4)
+    else:
+        assert got == StageBackends('cuda', 'torch', 'torch', 'torch')
+        assert said[0].startswith("stage1_backend='auto' runs on the "
+                                  'float32 modules'), said
+        assert all('Queue 3 item 1' in m for m in said), said
     assert not any(m.startswith('stem_backend') for m in said), said
     assert resolve_stage_backends({**cfg, 'stem_backend': 'cuda',
                                    'stage1_backend': 'torch'},

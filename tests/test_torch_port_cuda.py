@@ -6,8 +6,9 @@ conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
-Small shapes, full flagship widths, one stream and S streams per launch;
-the tolerances are chip_smoke.py's.
+Small shapes, full flagship widths (the stage kernels also at YOLOX-nano's
+and -tiny's: ``-k yolox``), one stream and S streams per launch; the
+tolerances are chip_smoke.py's.
 """
 import pytest
 import torch
@@ -209,6 +210,54 @@ def test_stage_csp_kernel_c32(dev, nb, hw):
     _stage_close(y, stage2_cuda.stage_csp_plain(x, k))
     for s in range(S):
         assert torch.equal(y[s:s + 1], stage2_cuda.stage_csp(x[s:s + 1], k))
+
+
+# YOLOX-nano (widen 0.25) and -tiny (0.375) at deepen 0.33: (stage, C_in)
+# the kernels are built for beside the flagship's, stage 1 with its one
+# block, stages 2 and 3 with three
+YOLOX_WIDTHS = [('stage1', 16), ('stage1', 24), ('stage2', 48),
+                ('stage3', 64), ('stage3', 96)]
+
+
+@pytest.mark.parametrize('stage,c', YOLOX_WIDTHS,
+                         ids=[f'{s}_c{c}' for s, c in YOLOX_WIDTHS])
+@pytest.mark.parametrize('hw', [(9, 13), (23, 37)])
+def test_stage_kernels_at_yolox_widths(dev, stage, c, hw):
+    """Each stage kernel at YOLOX-nano's and -tiny's widths on S = 3
+    streams whose output is not a multiple of its tiles (6 x 14 for stage
+    1, 10 x 10 and 8 x 16 for stages 2 and 3), seeded random weights:
+    within the flagship rows' tolerance of the plain version, one launch
+    counted under its own name, and each stream of the batch equal to its
+    own launch."""
+    nb = 1 if stage == 'stage1' else 3
+    dims = (c, 2 * c, c, nb)
+    g = torch.Generator().manual_seed(c + hw[0])
+    x = [(torch.randn((S, 2 * hw[0], 2 * hw[1], c), generator=g)
+          * 0.8).to(torch.bfloat16).to(dev) for _ in range(2)]
+    if stage == 'stage1':
+        ks = [_random_stage(dims, 60 + c + b, dev) for b in range(2)]
+
+        def run(*a):
+            return stage1_cuda.stage1_dual(*a, *ks)
+        plain = stage1_cuda.stage1_dual_plain(*x, *ks)
+    else:
+        k = _random_stage(dims, 60 + c, dev)
+        x = x[:1]
+        fn = (stage2_cuda.stage_csp if stage == 'stage2'
+              else stage3_cuda.stage3_csp)
+
+        def run(a):
+            return fn(a, k)
+        plain = stage2_cuda.stage_csp_plain(x[0], k)
+    before = _kernels.launch_counts()
+    y = run(*x)
+    after = _kernels.launch_counts()
+    assert {n: after[n] - before[n] for n in after if after[n] != before[n]
+            } == {stage: 1}
+    assert y.shape == (S, hw[0], hw[1], 2 * c)
+    _stage_close(y, plain)
+    for s in range(S):
+        assert torch.equal(y[s:s + 1], run(*(a[s:s + 1] for a in x)))
 
 
 @pytest.mark.parametrize('variant', sorted({stage1_cuda.PRODUCTION,

@@ -378,12 +378,23 @@ def test_cli_streams_equal_sequential(cli_setup):
 
 
 def test_cli_refuses_unported_flags(cli_setup):
+    """The flags of several processes stay refused (ROADMAP Queue 1 item
+    6); the drawing flags are taken (their output:
+    tests/test_torch_port_visualize.py)."""
     from stereotracking_tpu_torch.tools import test as cli
     _, cfg, _, _ = cli_setup
-    for flag in (['--show-errors'], ['--dist-coordinator', 'h:1'],
-                 ['--show-dir', 'vis'], ['--launcher', 'jax']):
-        with pytest.raises(NotImplementedError, match='Queue 1 item 3'):
+    for flag in (['--dist-coordinator', 'h:1'], ['--launcher', 'jax'],
+                 ['--dist-num-processes', '2'], ['--dist-process-id', '1']):
+        with pytest.raises(NotImplementedError, match='Queue 1 item 6'):
             cli.parse_args([str(cfg)] + flag)
+    for flags, want in (([], (None, 30, False)),
+                        (['--show-errors'], (None, 30, True)),
+                        (['--show-dir', 'vis'], ('vis', 30, False)),
+                        (['--show-dir', 'vis', '--show-interval', '2',
+                          '--show-errors', '--launcher', 'none'],
+                         ('vis', 2, True))):
+        args = cli.parse_args([str(cfg)] + flags)
+        assert (args.show_dir, args.show_interval, args.show_errors) == want
     with pytest.raises(RuntimeError, match='no CUDA device'):
         cli.main([str(cfg), '--device', 'cuda', '--work-dir',
                   str(cfg.parent / 'cuda')])

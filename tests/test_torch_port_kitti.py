@@ -107,7 +107,8 @@ def kitti_root(tmp_path_factory):
 
 def test_kitti_dataset_equals_jax(kitti_root):
     from stereotracking_tpu.data import MOTKittiDataset as JKitti
-    from stereotracking_tpu_torch.data import (MOTDispDataset,
+    from stereotracking_tpu_torch.data import (DanceTrackDataset,
+                                               MOTDispDataset,
                                                MOTKittiDataset)
     from stereotracking_tpu_torch.tools.test import build_dataset
     ann = str(kitti_root / 'annotations.json')
@@ -140,8 +141,26 @@ def test_kitti_dataset_equals_jax(kitti_root):
                                              path_token='img2')
     ds = build_dataset(cfg)
     assert type(ds) is MOTDispDataset and ds.path_token == 'img2'
-    cfg['test_dataloader']['dataset']['type'] = 'DanceTrackDataset'
-    with pytest.raises(NotImplementedError, match='Queue 1 item 3'):
+    # a DanceTrack tree (the MOT-challenge layout) is built as the JAX CLI
+    # builds it, from data_root, split and visibility_thr
+    seq = kitti_root / 'dance' / 'val' / 'dancetrack0001'
+    (seq / 'gt').mkdir(parents=True)
+    (seq / 'gt' / 'gt.txt').write_text('1,5,10,20,20,32,1,1,1.0\n'
+                                       '1,6,40,20,20,32,1,1,0.4\n')
+    (seq / 'seqinfo.ini').write_text('[Sequence]\nimDir=img1\nseqLength=1\n'
+                                     'imWidth=128\nimHeight=96\n'
+                                     'imExt=.jpg\n')
+    cfg['test_dataloader']['dataset'] = dict(
+        type='DanceTrackDataset', data_root=str(kitti_root / 'dance'),
+        split='val', visibility_thr=0.5)
+    ds = build_dataset(cfg)
+    assert type(ds) is DanceTrackDataset
+    assert ds.videos() == ['dancetrack0001']
+    info = ds.frame_info(ds.video_frames('dancetrack0001')[0])
+    assert (info['width'], info['height']) == (128, 96)
+    np.testing.assert_array_equal(info['gt_instance_ids'], [5])
+    cfg['test_dataloader']['dataset']['type'] = 'TAODataset'
+    with pytest.raises(NotImplementedError, match='Queue 1 item 8'):
         build_dataset(cfg)
 
 
