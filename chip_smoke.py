@@ -2918,6 +2918,7 @@ def main():
     sys.path.insert(0, REPO)
     from stereotracking_tpu_torch import _kernels
     from stereotracking_tpu_torch.models.preprocessor import padded_shape
+    from stereotracking_tpu_torch.utils import trace
     t_start = time.perf_counter()
     device = torch.device('cuda', 0)
     torch.backends.cudnn.allow_tf32 = False
@@ -2929,11 +2930,10 @@ def main():
     print(f'device: {torch.cuda.get_device_name(0)}; {card}; torch '
           f'{torch.__version__}, CUDA {torch.version.cuda}', flush=True)
 
-    t0 = time.perf_counter()
-    path = _kernels.build()
     _kernels.library()
-    print(f'build: {path.name} in {time.perf_counter() - t0:.1f} s '
-          f'(nvcc {_kernels.build_seconds})', flush=True)
+    print(f'build: {_kernels.library_path().name}, built or loaded in '
+          f'{trace.span_total_s("library"):.1f} s (the library span)',
+          flush=True)
     laps = [time.perf_counter()]
 
     def lap(what):

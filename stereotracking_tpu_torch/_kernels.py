@@ -21,7 +21,6 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
 from typing import Dict
 
@@ -34,7 +33,6 @@ KERNELS = ('stem', 'stage1', 'stage2', 'stage3', 'depth', 'assignment',
 
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 _lib = None
-build_seconds = None      # wall time of the last nvcc build (None: cached)
 _ptxas_logs: Dict[str, str] = {}   # source -> its ptxas -v output, as built
 
 _P = ctypes.c_void_p
@@ -63,6 +61,8 @@ _SIGNATURES = {
     # boxes, finite, n, k, thr, eps, max_keep, mask scratch, tickets, keep,
     # stream
     'st_nms_keep': (_P, _P, _I, _I, _F, _F, _I, _P, _P, _P, _P),
+    # rows, ctl (NULL: stamp rows[0] alone), n rows, n cols, phase, stream
+    'st_phase_mark': (_P, _P, _I, _I, _I, _P),
 }
 
 
@@ -108,7 +108,6 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the kernels unless a library of the same sources exists."""
-    global build_seconds
     out = library_path()
     if out.exists():
         return out
@@ -116,7 +115,6 @@ def build() -> Path:
     cu, _ = _sources()
     tag = f'{out.stem}.{os.getpid()}'
     objs = [BUILD_DIR / f'{tag}.{p.stem}.o' for p in cu]
-    t0 = time.perf_counter()
     # -Xptxas -v only reports (registers, shared memory, spills): the code
     # is the same, and ptxas_usage reads the reports without a recompile
     cmds = [[_nvcc(), *NVCC_FLAGS, '-Xptxas', '-v', '-c', '-o', str(o),
@@ -143,7 +141,6 @@ def build() -> Path:
             o.unlink(missing_ok=True)
     os.replace(tmp, out)
     _ptxas_logs.update((p.name, log) for p, log in zip(cu, logs))
-    build_seconds = time.perf_counter() - t0
     return out
 
 
@@ -172,10 +169,13 @@ def ptxas_usage(sources) -> Dict[str, list]:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call), its build or load
+    timed by the tracer's ``library`` span."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        from .utils import trace
+        with trace.span('library'):
+            lib = ctypes.CDLL(str(build()))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = list(argtypes)

@@ -46,6 +46,9 @@ What capture has to respect, and how:
   the warm-up and into the capture; a replay runs the captured kernels
   without a wrapper call and counts nothing (a ``torch.profiler`` trace of
   the replays sees each kernel);
+- phase marks (utils/trace.py): the step's marks are captured with it,
+  so each replay stamps a row of the phase ring; the warm-up's store
+  nothing (``trace.unmarked``), since its state is put back;
 - every kernel launches on ``torch.cuda.current_stream()``, the capture
   stream during capture; cuDNN's algorithm choice is the same under
   capture as long as ``torch.backends.cudnn.benchmark`` is off, which the
@@ -59,6 +62,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import trace
 from . import tracker as trk
 
 
@@ -84,7 +88,7 @@ class _Graph:
         saved = [t.clone() for t in state]
         side = torch.cuda.Stream(device=dev)
         side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), trace.unmarked():
             step(self.img, self.disp, self.fid, self.sf, self.depth,
                  self.warp)                                     # warm-up
         torch.cuda.current_stream().wait_stream(side)
@@ -114,8 +118,11 @@ class _Graph:
                                         non_blocking=True)
             self.warp[1].copy_(_pinned(on, np.bool_), non_blocking=True)
 
-    def replay(self) -> NamedTuple:
+    def replay(self) -> None:
         self.graph.replay()
+
+    def clone(self) -> NamedTuple:
+        """The last replay's results, as tensors of their own."""
         return type(self.out)(*(t.clone() for t in self.out))
 
 
@@ -172,15 +179,17 @@ class CapturedStep:
             raise RuntimeError('CapturedStep: torch.backends.cudnn.benchmark '
                                'is on; cuDNN could pick other algorithms '
                                'under capture than outside it')
-        key = (tuple(img_u8.shape), img_u8.dtype, tuple(disp_u16.shape),
-               disp_u16.dtype,
-               None if depth_raw is None else tuple(depth_raw.shape),
-               torch.backends.cudnn.enabled,
-               torch.backends.cudnn.allow_tf32,
-               torch.backends.cuda.matmul.allow_tf32,
-               tuple(t.data_ptr() for t in states), self._weights_key(),
-               self.cmc, None if cmc is None else tuple(
-                   t.data_ptr() for t in cmc), host_warp is None)
+        trace.ready(img_u8.device)
+        with trace.span('key'):
+            key = (tuple(img_u8.shape), img_u8.dtype, tuple(disp_u16.shape),
+                   disp_u16.dtype,
+                   None if depth_raw is None else tuple(depth_raw.shape),
+                   torch.backends.cudnn.enabled,
+                   torch.backends.cudnn.allow_tf32,
+                   torch.backends.cuda.matmul.allow_tf32,
+                   tuple(t.data_ptr() for t in states), self._weights_key(),
+                   self.cmc, None if cmc is None else tuple(
+                       t.data_ptr() for t in cmc), host_warp is None)
         if key != self._key:
             self._graph = self._key = None     # its memory goes first
 
@@ -188,12 +197,17 @@ class CapturedStep:
                 return self.step(states, img, disp, fid, sf_dev, depth, cmc,
                                  warp)
 
-            self._graph = _Graph(step, [*states, *(cmc or ())], img_u8,
-                                 disp_u16, frame_ids, sf, depth_raw,
-                                 host_warp)
+            with trace.span('capture'):
+                self._graph = _Graph(step, [*states, *(cmc or ())], img_u8,
+                                     disp_u16, frame_ids, sf, depth_raw,
+                                     host_warp)
             self._key = key
             self.captures += 1
         else:
-            self._graph.load(img_u8, disp_u16, frame_ids, sf, depth_raw,
-                             host_warp)
-        return self._graph.replay()
+            with trace.span('load'):
+                self._graph.load(img_u8, disp_u16, frame_ids, sf, depth_raw,
+                                 host_warp)
+        with trace.span('replay'):
+            self._graph.replay()
+        with trace.span('clone'):
+            return self._graph.clone()

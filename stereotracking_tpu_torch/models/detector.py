@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from ..ops.nms import NMSResult, batched_nms, multiclass_candidates
+from ..utils import trace
 from .csp_darknet import (CSPDarknet, CSPDarknetConcat, CSPDarknetDual,
                           StageBackends)
 from .pafpn import YOLOXPAFPN
@@ -77,21 +78,25 @@ def detector_predict(module: YOLOXDetector, inputs: dict,
     """Predict for the S frames of ``inputs``: forward + decode + NMS +
     rescale (boxes are divided by ``scale_factor``: (sf_x, sf_y), or a (4,)
     float32 tensor (sf_x, sf_y, sf_x, sf_y) on the boxes' device), each
-    NMSResult field with a leading S."""
+    NMSResult field with a leading S.  Inside the tracker step it marks the
+    ``'detector'`` and ``'nms'`` phases (utils/trace.py)."""
     cfg = module.cfg
     cls, reg, obj = module(inputs, backends)
+    trace.mark('detector', cls[0])
     boxes, scores = decode_predictions(cls, reg, obj, cfg.strides)
     fb, fs, fl = multiclass_candidates(boxes, scores, cfg.score_thr)
     res = batched_nms(fb, fs, fl, cfg.nms_iou_thr, cfg.score_thr,
                       cfg.pre_nms_top_k, cfg.max_per_img)
-    if not torch.is_tensor(scale_factor):
-        if tuple(scale_factor) == (1.0, 1.0):
-            return res                   # x / 1 == x
+    if not torch.is_tensor(scale_factor) and \
+            tuple(scale_factor) != (1.0, 1.0):       # x / 1 == x
         # filled on the device (no host-to-device copy, which a CUDA graph
         # would replay from its captured host buffer)
         sf = torch.full((4,), float(scale_factor[0]), dtype=torch.float32,
                         device=res.boxes.device)
         sf[1::2] = float(scale_factor[1])
         scale_factor = sf
-    # divided tensor by tensor, an IEEE division
-    return res._replace(boxes=res.boxes / scale_factor)
+    if torch.is_tensor(scale_factor):
+        # divided tensor by tensor, an IEEE division
+        res = res._replace(boxes=res.boxes / scale_factor)
+    trace.mark('nms', res.boxes)
+    return res

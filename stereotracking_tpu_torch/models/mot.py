@@ -34,6 +34,7 @@ from ..ops.depth import (disp_to_depth, extract_box_depths,
 from ..ops.gmc import (GMCConfig, estimate_camera_motion, gated_warp,
                        to_small_gray)
 from ..structures.bbox import scale_bbox
+from ..utils import trace
 from ..utils.devices import checked_device, to_device
 from . import tracker as trk
 from .captured_step import CapturedStep
@@ -142,6 +143,7 @@ def predict_frames_batched(module: YOLOXDetector, states: trk.TrackState,
         warp, warp_on = camera_warp(
             cfg.cmc, cmc, inputs['img'] if cmc_frame is None else cmc_frame,
             frame_ids)
+        trace.mark('cmc', warp)
     det = detector_predict(module, inputs, scale_factor, cfg.backends)
     disp = inputs['disp_postp'][..., 0]
     if cfg.depth_mode == 'corner_guided' and cfg.disp_fixed_point:
@@ -163,8 +165,10 @@ def predict_frames_batched(module: YOLOXDetector, states: trk.TrackState,
         bboxes=scale_bbox(det.boxes[:, :nd], scales),
         scores=det.scores[:, :nd], labels=det.labels[:, :nd], scales=scales,
         depths=d_vals, valid=det.valid[:, :nd])
+    trace.mark('depth', dets.bboxes)
     states, out = trk.step(states, dets, frame_ids, cfg.tracker, warp,
                            warp_on)
+    trace.mark('tracker', out.bboxes)
 
     unscaled = scale_bbox(out.bboxes, 1.0 / out.scales)
     if cfg.reuse_det_depth:
@@ -224,13 +228,18 @@ def step_raw(module: YOLOXDetector, cfg: MOTConfig,
     uint16 frames (and optional (S, H, W) ground-truth depth), the new
     track state written into ``states`` (and ``cmc``) in place: the step
     that ``CapturedStep`` captures.  Camera motion is estimated on the raw
-    frame at its own size, as the JAX ``track_raw`` does."""
+    frame at its own size, as the JAX ``track_raw`` does.  The step's
+    phases are marked on the tracer's phase clock (utils/trace.py), from
+    ``'start'`` here to ``'finish'`` after the state's write-back."""
+    trace.mark('start', img_u8)
     oh, ow = padded_shape(*img_u8.shape[1:3])
     inputs = preprocess_raw(img_u8, disp_u16, oh, ow, depth_raw)
+    trace.mark('preprocess', img_u8)
     new, res = predict_frames_batched(module, states, inputs, frame_ids, cfg,
                                       scale_factor, cmc=cmc,
                                       cmc_frame=img_u8, host_warp=host_warp)
     trk.assign_state(states, new)
+    trace.mark('finish', img_u8)
     return res
 
 
@@ -274,16 +283,19 @@ def fetch_result(res: FrameResult) -> Callable[[], FrameResult]:
     copied into pinned host memory with ``non_blocking=True`` on the
     current stream.  Returns a function that waits for those copies, one
     synchronisation for all fields (a ``.cpu()`` per field would be one
-    each), and gives the FrameResult of numpy arrays."""
+    each), and gives the FrameResult of numpy arrays.  The tracer's ``fetch``
+    span times the start."""
     if res.det_bboxes.device.type != 'cuda':
-        host = FrameResult(*(np.array(t) for t in res))
+        with trace.span('fetch'):
+            host = FrameResult(*(np.array(t) for t in res))
         return lambda: host
-    pinned = []
-    for t in res:
-        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        pinned.append(h.copy_(t, non_blocking=True))
-    done = torch.cuda.Event()
-    done.record()
+    with trace.span('fetch'):
+        pinned = []
+        for t in res:
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            pinned.append(h.copy_(t, non_blocking=True))
+        done = torch.cuda.Event()
+        done.record()
 
     def wait() -> FrameResult:
         done.synchronize()
@@ -413,11 +425,14 @@ class OCSORTDisparity:
         fixed-point disparity (65535 = invalid), numpy or torch; ``frame_id``
         an int or a 0-d tensor."""
         host = self._host_warp(img_u8, frame_id)
-        img_u8 = self._as_tensor(img_u8)
-        disp_u16 = self._as_tensor(disp_u16)
-        depth = None if depth_raw is None else self._as_tensor(depth_raw)[None]
         fid = frame_id.reshape(1) if torch.is_tensor(frame_id) else [frame_id]
         self._order.check(fid)
+        trace.begin_step()
+        with trace.span('frames'):
+            img_u8 = self._as_tensor(img_u8)
+            disp_u16 = self._as_tensor(disp_u16)
+            depth = (None if depth_raw is None
+                     else self._as_tensor(depth_raw)[None])
         result = self._step(self.states, img_u8[None], disp_u16[None], fid,
                             scale_factor, depth, cmc=self.cmc,
                             host_warp=host)

@@ -30,6 +30,7 @@ from ..models.detector import YOLOXDetector
 from ..models.captured_step import CapturedStep
 from ..models.mot import (FrameResult, MOTConfig, detector_module,
                           predict_frames_batched, step_raw)
+from ..utils import trace
 from ..utils.devices import checked_device, to_device
 
 
@@ -110,13 +111,16 @@ class MultiStreamTracker:
         ``imgs_u8`` (S, H, W, 3) uint8, ``disps_u16`` (S, H, W) uint16,
         ``frame_ids`` (S,); numpy or torch.  Every FrameResult field has a
         leading S."""
-        imgs_u8 = self._as_tensor(imgs_u8)
-        disps_u16 = self._as_tensor(disps_u16)
         if imgs_u8.shape[0] != self.n_streams:
             raise ValueError(f'{self.n_streams} streams expected, got '
                              f'{tuple(imgs_u8.shape)}')
-        return self._step(self.states, imgs_u8, disps_u16,
-                          self._frame_ids(frame_ids), scale_factor)
+        fids = self._frame_ids(frame_ids)
+        trace.begin_step()
+        with trace.span('frames'):
+            imgs_u8 = self._as_tensor(imgs_u8)
+            disps_u16 = self._as_tensor(disps_u16)
+        return self._step(self.states, imgs_u8, disps_u16, fids,
+                          scale_factor)
 
     def track_raw_chunk(self, imgs_u8, disps_u16, frame_ids: Sequence,
                         scale_factor: Tuple[float, float] = (1.0, 1.0)

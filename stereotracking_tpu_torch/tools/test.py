@@ -65,6 +65,7 @@ from ..data import transforms as T
 from ..evaluation import CocoMAPEvaluator, MOTDroneMetrics
 from ..models.mot import FrameResult, fetch_result
 from ..parallel.multistream import MultiStreamTracker
+from ..utils import trace
 from ..utils.collect_results import ResultsCSV
 from ..utils.devices import to_device
 from ..utils.obs import build_logger
@@ -279,6 +280,7 @@ def _sequential_eval(args, model, dataset, videos, img_scale, f,
         vname = dataset.video_name(vid)
         frame_ids = dataset.video_frames(vid)
         prev_match = {}
+        first_step = trace.last_step() + 1
         loader = PrefetchIterator(frame_ids, dataset.load_frame,
                                   num_workers=4)
         for local_f, sample in enumerate(loader):
@@ -300,8 +302,8 @@ def _sequential_eval(args, model, dataset, videos, img_scale, f,
         if logger is not None:
             logger.log(n_frames, dict(
                 video_frames=len(frame_ids),
-                fps=n_frames / max(time.perf_counter() - t_start, 1e-9)),
-                prefix='eval')
+                fps=n_frames / max(time.perf_counter() - t_start, 1e-9),
+                **trace.summary(first_step)), prefix='eval')
     return n_frames, time.perf_counter() - t_start
 
 
@@ -372,6 +374,7 @@ def _multistream_eval(args, model, dataset, videos, img_scale, f,
                     prev_match[s] = show(names[s], t, samples[s], one,
                                          prev_match[s])
 
+        first_step = trace.last_step() + 1
         t_start = time.perf_counter()
         pending = None            # one step behind: step t is issued
         for t, (samples, entry) in enumerate(it):   # before t-1 is read
@@ -390,7 +393,8 @@ def _multistream_eval(args, model, dataset, videos, img_scale, f,
         if logger is not None:
             logger.log(n_frames, dict(
                 group_frames=L * real,
-                fps=n_frames / max(elapsed, 1e-9)), prefix='eval')
+                fps=n_frames / max(elapsed, 1e-9),
+                **trace.summary(first_step)), prefix='eval')
     return n_frames, elapsed
 
 

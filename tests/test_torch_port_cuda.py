@@ -680,3 +680,59 @@ def test_captured_cmc_step_equals_eager(dev):
             assert torch.equal(getattr(got, name), getattr(want, name)[0])
         assert torch.equal(one.cmc.prev, cmc.prev)
     assert bool(one.cmc.has_prev.all()) and one._step.captures == 1
+
+
+def test_phase_clock_rows_on_the_card(dev):
+    """The tracer on the card (utils/trace.py): MultiStreamTracker's
+    replayed step, with the phase marks inside its graph, still equals the
+    eager step (ids and validity exact, boxes within 1e-2 px); each replay
+    fills one row whose device step counter equals the host's step number
+    that its spans carry; every phase is stamped, in order; the clock
+    offset's error bound is under 20 us; on the host's clock each step's
+    device start and finish lie between the start of its ``replay`` span
+    and the end of the wait for its result."""
+    import time
+    import numpy as np
+    from stereotracking_tpu_torch.models.mot import (fetch_result,
+                                                     predict_frames_batched,
+                                                     preprocess_raw)
+    from stereotracking_tpu_torch.models.preprocessor import padded_shape
+    from stereotracking_tpu_torch.parallel.multistream import (
+        MultiStreamTracker, init_stream_states)
+    from stereotracking_tpu_torch.utils import trace
+    cfg, det, img, disp = _captured_world(dev)
+    ms = MultiStreamTracker(cfg, 8, module=det, device=dev)
+    states = init_stream_states(cfg, 8, dev)
+    torch.cuda.synchronize(dev)
+    trace.reset()
+    waited = []
+    for t in range(6):
+        fids = torch.full((8,), t, dtype=torch.int32, device=dev)
+        host = fetch_result(ms.track_raw(img[t], disp[t], fids))()
+        waited.append(time.perf_counter_ns())
+        inputs = preprocess_raw(img[t], disp[t], *padded_shape(H, W))
+        states, want = predict_frames_batched(det, states, inputs, fids, cfg)
+        for name in ('track_ids', 'track_valid', 'det_valid'):
+            assert (getattr(host, name)
+                    == getattr(want, name).cpu().numpy()).all(), (t, name)
+        assert abs(host.track_bboxes
+                   - want.track_bboxes.cpu().numpy()).max() <= 1e-2
+    assert ms._step.captures == 1
+    rows = trace.phase_rows()
+    assert rows['step'].tolist() == list(range(1, 7)) == \
+        list(range(1, trace.last_step() + 1))
+    assert rows['device'].all() and (rows['cmc'] == 0).all()
+    order = [p for p in trace.PHASES if p != 'cmc']
+    for r in rows:
+        stamps = [int(r[p]) for p in order]
+        assert all(stamps) and stamps == sorted(stamps), r
+    off, bound = trace.offset()
+    assert 0 <= bound < 20_000, bound
+    spans = trace.span_rows()
+    replay = spans[spans['name'] == 'replay']
+    assert replay['step'].tolist() == list(range(1, 7))
+    for r, span, done in zip(rows, replay, waited):
+        assert span['start'] - bound <= r['start'] <= r['finish'] \
+            <= done + bound, (r, span, done)
+    assert np.isin(['frames', 'key', 'capture', 'load', 'replay', 'clone',
+                    'fetch'], spans['name']).all()

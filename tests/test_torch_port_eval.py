@@ -363,6 +363,10 @@ def test_cli_metrics_equal_jax(cli_setup):
     lines = [json.loads(ln) for ln in
              (out / 'scalars.jsonl').read_text().splitlines()]
     assert any(ln['prefix'] == 'metrics' and 'MOTA' in ln for ln in lines)
+    evals = [ln for ln in lines if ln['prefix'] == 'eval']
+    assert evals and all({'fps', 'phase.detector_ms', 'phase.tracker_ms',
+                          'host.frames_ms', 'host.fetch_ms'} <= set(ln)
+                         for ln in evals), evals
 
 
 def test_cli_streams_equal_sequential(cli_setup):
@@ -375,6 +379,11 @@ def test_cli_streams_equal_sequential(cli_setup):
     for k in ('MOTA', 'IDF1') + COUNT_KEYS:
         assert seq[k] == ms[k], (k, seq[k], ms[k])
     assert seq['CLR_FP'] > 0
+    groups = [json.loads(ln) for ln in
+              (root / 'ms' / 'scalars.jsonl').read_text().splitlines()]
+    groups = [ln for ln in groups if ln['prefix'] == 'eval']
+    assert groups and all(ln['phase.nms_ms'] > 0 and ln['host.frames_ms'] > 0
+                          for ln in groups), groups
 
 
 def test_cli_refuses_unported_flags(cli_setup):
