@@ -11,8 +11,8 @@ Phases, in order; any failure exits non-zero:
 2. build: compiles the CUDA kernels from ``stereotracking_tpu_torch/csrc``
    (one nvcc per source, all at once, sm_90a, with ``-Xptxas -v``) and
    prints the build time and, for the kernels redesigned for the H100
-   (the stem, stages 1-3, depth, the JV and NMS), their registers, shared
-   memory and spills from that build;
+   (the stem, stages 1-3, depth, the JV, NMS and the slot update), their
+   registers, shared memory and spills from that build;
 3. kernels: each kernel against its plain PyTorch version on the same
    inputs, at one stream and at 8 streams of 1080x1920 raw frames padded to
    1088x1920, with the tolerance stated beside each check; kernel, plain
@@ -69,12 +69,18 @@ Phases, in order; any failure exits non-zero:
    host sync; replayed equal to eager; outputs finite; printed as
    findings, not checks: the largest bf16 - float32 difference of the head
    maps on one frame and how many of stream 0's track slots differ over 3
-   steps; then the device time of the tracker's fixed-trip smoothing
-   replay alone (one CUDA graph) at 8 and one stream; then YOLOX-tiny's
-   widths (widen 0.375, seeded random weights) on the same 8 steps in
-   bf16, replayed (0 host syncs, replayed == eager), every stage 'auto'
-   (stem, stage-1 and stage-2 kernels) against the stem kernel with
-   stages 1-3 on the bf16 modules, ms per step of each;
+   steps; then YOLOX-tiny's widths (widen 0.375, seeded random weights)
+   on the same 8 steps in bf16, replayed (0 host syncs, replayed ==
+   eager), every stage 'auto' (stem, stage-1 and stage-2 kernels) against
+   the stem kernel with stages 1-3 on the bf16 modules, ms per step of
+   each; then the slot-update kernel (steps 5-7 of the tracker's main
+   path, ``check_slot_update``) on full banks of 8 x 64 and 16 x 64
+   matched tracks, all tracked (one Kalman update a slot) and all
+   recovered after 29 frames (30 a slot, the worst case), against its
+   plain version (ints equal, floats within 1e-3 + 1e-4 relative), its
+   time as a CUDA-graph node and eagerly by CUDA events beside the plain
+   op chain's in one CUDA graph and its bound (JSON ``slot_update``,
+   ``worst`` and ``streams16``);
 8. eval: the eval CLI's loop (``stereotracking_tpu_torch.tools.test.
    evaluate``) over 2 videos x 6 frames of 1080x1920 held in memory (ground
    truth: the rectangles ``make_frames`` draws), weights through
@@ -110,10 +116,10 @@ Phases, in order; any failure exits non-zero:
    and its steps replayed again under ``torch.profiler``, the wrappers'
    counts set to 0 just before: the hand-written kernels in the trace must
    be stem 2, stage 1 1, stage 2 1, stage 3 1 (0 in phase 5), depth 2,
-   assignment 3 and nms 1 per step (phase 5's backend mixes: stem 2, each
-   stage 1 where it resolved to its kernel, else 0, depth 2, assignment
-   3, nms 1), the wrappers' counts 0 (every step a replay), and ids and
-   validity as in the timed run;
+   assignment 3, nms 1 and slot update 1 per step (phase 5's backend
+   mixes: stem 2, each stage 1 where it resolved to its kernel, else 0,
+   depth 2, assignment 3, nms 1, slot update 1), the wrappers' counts 0
+   (every step a replay), and ids and validity as in the timed run;
 11. probe: the stage-1 kernel's six variants at 8 streams, each held to
    the plain version and timed (``tools/probe_stage1_variants.py``), the
    production one beside the wmma 16x16 region it replaced;
@@ -211,13 +217,15 @@ KERNELS = {
             'stereotracking_tpu/ops/nms.py:31'),
     'stage1_variants': ('stereotracking_tpu_torch/csrc/stage1.cu',
                         'tools/probe_stage1_variants.py:153'),
+    'slot_update': ('stereotracking_tpu_torch/csrc/slot_update.cu',
+                    'stereotracking_tpu/models/tracker.py:334'),
 }
 
 # kernels redesigned for the H100: their ptxas registers, shared memory and
 # spills are printed, and their device time in torch.profiler (depth,
 # assignment, nms) or achieved rate and share of the bound (the others)
 REDESIGNED = ('stem', 'stage1', 'stage2', 'stage3', 'depth', 'assignment',
-              'nms')
+              'nms', 'slot_update')
 ALL_KERNELS = ('cuda',) * 4       # a StageBackends with every stage kernel
 
 
@@ -1218,48 +1226,115 @@ def check_nms(nms_inputs, sup, iters):
     return r, trace
 
 
-def replay_cost(tcfg, device, n_streams, iters=20):
-    """Device time of the tracker's fixed-trip smoothing replay alone
-    (``replay_bound`` Kalman updates over (S, 64) slots, as the step runs
-    it), captured in a CUDA graph and timed by CUDA events."""
+# operations of one Kalman update as csrc/slot_update.cu does it: 522
+# fused multiply-adds, 82 other additions and multiplications, 74
+# divisions and square roots
+UPDATE_OPS = 2 * 522 + 82 + 74
+
+
+def slot_case(device, n_streams, k, gap, cfg):
+    """``tests/device_step_cases.slot_bank_case`` on ``device``: (state,
+    slot_det, dets, fid) for ``slot_update``."""
     import torch
-    from stereotracking_tpu_torch.models import kalman
     from stereotracking_tpu_torch.models import tracker as trk
-    from stereotracking_tpu_torch.structures.bbox import bbox_xyxy_to_cxcyah
-    g = torch.Generator().manual_seed(SEED)
-    k = tcfg.num_slots
-    box = torch.rand((n_streams, k, 4), generator=g) * 100
-    box[..., 2:] += box[..., :2] + 10
-    box = box.to(device)
-    mean, cov = kalman.initiate(bbox_xyxy_to_cxcyah(box))
-    shift = torch.ones_like(box)
-    unmatch = torch.randint(0, tcfg.num_frames_retain, (n_streams, k),
-                            generator=g).to(device)
-    recovered = unmatch > 20
+    sys.path.insert(0, os.path.join(REPO, 'tests'))
+    try:
+        from device_step_cases import slot_bank_case
+    finally:
+        sys.path.pop(0)
+    case = {n: torch.from_numpy(v).to(device) for n, v in slot_bank_case(
+        n_streams, k, k, gap=gap, seed=SEED + gap,
+        ring=cfg.ring_size).items()}
+    state = trk.init_state(cfg, device, n_streams)._replace(
+        **{f: case[f] for f in trk.TrackState._fields if f in case})
+    dets = trk.Detections(**{f: case['det_' + f]
+                             for f in trk.Detections._fields})
+    return state, case['slot_det'], dets, case['fid']
 
-    def replay():
-        m, c = mean, cov
-        for i in range(trk.replay_bound(tcfg)):
-            virtual = box + float(i + 1) * shift
-            m2, c2 = kalman.update(m, c, bbox_xyxy_to_cxcyah(virtual))
-            apply = recovered & (i < unmatch)
-            m = torch.where(apply[..., None], m2, m)
-            c = torch.where(apply[..., None, None], c2, c)
-        return m, c
 
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        replay()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        replay()
-    ms = time_ms(graph.replay, iters)
-    print(f'tracker x{n_streams}: the smoothing replay\'s '
-          f'{trk.replay_bound(tcfg)} Kalman updates over ({n_streams}, {k}) '
-          f'slots, one CUDA graph: {ms:.4f} ms device time', flush=True)
-    return ms
+# kernel launches captured in one CUDA graph to time the slot update
+GRAPH_LAUNCHES = 10
+
+
+def check_slot_update(device, n_streams, k=64, iters=100):
+    """The slot-update kernel (steps 5-7 of the tracker's main path) on a
+    full bank of ``n_streams`` x ``k`` matched tracks: ``main`` every slot
+    tracked (one Kalman update each, as the main path of a full bank) and
+    ``worst`` every slot recovered after ``num_frames_retain - 1`` frames
+    (29 replay updates and one update each, the most a step does).  Each
+    against the plain version on CPU copies (max abs error, ints equal);
+    the kernel's time as a node of a CUDA graph (``GRAPH_LAUNCHES``
+    launches captured in one, by CUDA events), and eagerly by CUDA events
+    (the wrapper's host work included); the plain version's op chain on
+    the card, captured in one CUDA graph, by CUDA events; the bound: the
+    bytes the slots need once (saved states only where recovered) over
+    HBM, or the updates' operations over the float32 CUDA-core peak.  No
+    torch.profiler session (after many, the profiler drops device events
+    in the sessions that follow).  Returns the row and, for a device-time
+    trace, a call of the kernel on each bank."""
+    import torch
+    from stereotracking_tpu_torch.models import tracker as trk
+    from stereotracking_tpu_torch.ops import slot_update_cuda as su
+    cfg = trk.TrackerConfig(num_slots=k, num_dets=k)
+    row, calls = {}, {}
+    for what, gap in (('main', 0), ('worst', trk.replay_bound(cfg))):
+        state, slot_det, dets, fid = slot_case(device, n_streams, k, gap, cfg)
+        got = su.slot_update(state, slot_det, dets, fid, cfg)
+        want, updates = su.slot_update_plain(
+            type(state)(*(x.cpu() for x in state)), slot_det.cpu(),
+            type(dets)(*(x.cpu() for x in dets)), fid.cpu(), cfg)
+        err = 0.0
+        for name in su.OUT_FIELDS:
+            a, b = getattr(got, name).cpu(), getattr(want, name)
+            if a.dtype.is_floating_point:
+                require(torch.allclose(a, b, atol=1e-3, rtol=1e-4),
+                        f'slot_update {what}: {name} off the plain version')
+                err = max(err, float((a - b).abs().max()))
+            else:
+                require(torch.equal(a, b), f'slot_update {what}: {name} '
+                        f'differs from the plain version')
+
+        def kernel(a=(state, slot_det, dets, fid)):
+            return su.slot_update(*a, cfg)
+
+        def plain(a=(state, slot_det, dets, fid)):
+            return su.slot_update_plain(*a, cfg)
+
+        def captured(fn, launches=1):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                fn()
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                for _ in range(launches):
+                    fn()
+            return graph
+
+        kernels = captured(kernel, GRAPH_LAUNCHES)
+        chain = captured(plain)
+        skip = () if gap else ('saved_mean', 'saved_cov')
+        n_bytes = nbytes(slot_det, fid, *dets, *(
+            getattr(state, f) for f in su.IN_FIELDS if f not in skip),
+            *(getattr(got, f) for f in su.OUT_FIELDS))
+        n_updates = n_streams * k + int(updates)
+        bound_ms, by = bound(n_bytes, n_updates * UPDATE_OPS, PEAK_F32)
+        r = dict(max_abs_err=err,
+                 graph_ms=time_ms(kernels.replay, iters) / GRAPH_LAUNCHES,
+                 ms=time_ms(kernel, iters),
+                 plain_ms=time_ms(chain.replay, max(iters // 10, 5)),
+                 bound_ms=bound_ms, bound_by=by, library_ms=None,
+                 updates=n_updates, bytes=n_bytes)
+        print(f'slot_update x{n_streams} {what}: {n_updates} Kalman updates '
+              f'over ({n_streams}, {k}) slots, max abs err {err:.3g}: '
+              f'kernel in a CUDA graph {r["graph_ms"]:.4f} ms, eager '
+              f'{r["ms"]:.4f} ms; plain op chain (one CUDA graph) '
+              f'{r["plain_ms"]:.4f} ms; bound {bound_ms:.5f} ms ({by}), '
+              f'{100 * bound_ms / r["graph_ms"]:.2f}% of it', flush=True)
+        row[what] = r
+        calls[what] = kernel
+    return dict(row['main'], worst=row['worst']), calls
 
 
 def check_small_reference(model, device):
@@ -1316,7 +1391,7 @@ def check_result(r, lead, num_dets, what):
 
 # launches per step of every hand-written kernel of the main path
 PER_STEP = {'stem': 2, 'stage1': 1, 'stage2': 1, 'stage3': 1, 'depth': 2,
-            'assignment': 3, 'nms': 1}
+            'assignment': 3, 'nms': 1, 'slot_update': 1}
 
 
 # the kernel that each wrapper launches, as a torch.profiler trace names it
@@ -1326,7 +1401,8 @@ TRACE_KERNELS = {'stem': ('focus_stem_kernel',),
                  'stage2': ('stage_csp_kernel',),
                  'stage3': ('stage3_chain_kernel', 'stage3_fused_kernel'),
                  'depth': ('box_depths_kernel',), 'assignment': ('jv_kernel',),
-                 'nms': ('nms_kernel',)}
+                 'nms': ('nms_kernel',),
+                 'slot_update': ('ocsort_slot_update_kernel',)}
 
 
 def require_launches(counts, want, steps, what):
@@ -1581,7 +1657,7 @@ def run_mixed(model, frames, device):
         one = OCSORTDisparity(mot, module=module, device=device, seed=SEED)
         want = {name: per if b == 'cuda' else 0 for name, per, b in zip(
             StageBackends._fields, (2, 1, 1, 1), backends)}
-        want.update(depth=2, assignment=3, nms=1)
+        want.update(depth=2, assignment=3, nms=1, slot_update=1)
         r = replayed_run(one, dev_frames, 0, f'mixed ({what})', want)
         jobs.append(r['job'])
         for m in said:
@@ -1785,7 +1861,7 @@ def run_tiny_bf16(device, steps):
                                      device=device, dtype=bf16)
         want = {name: per if b == 'cuda' else 0 for name, per, b in zip(
             StageBackends._fields, (2, 1, 1, 1), backends)}
-        want.update(depth=2, assignment=3, nms=1)
+        want.update(depth=2, assignment=3, nms=1, slot_update=1)
         run = replayed_run(tracker, steps, N_STREAMS,
                            f'widen 0.375 bf16 {what}', want)
         ms[what] = run['ms']
@@ -2320,9 +2396,11 @@ def no_stage_kernels(mot):
     """Launches per step of a path with no stage kernel (the single and
     concatenated backbones): depth twice, or once where the config keeps
     the detection's depth (``reuse_det_depth``, the default of both
-    packages, which the monocular config keeps), 3 assignments, 1 NMS."""
+    packages, which the monocular config keeps), 3 assignments, 1 NMS, 1
+    slot update."""
     return dict(stem=0, stage1=0, stage2=0, stage3=0,
-                depth=1 if mot.reuse_det_depth else 2, assignment=3, nms=1)
+                depth=1 if mot.reuse_det_depth else 2, assignment=3, nms=1,
+                slot_update=1)
 
 
 def load_cfg(path):
@@ -2974,8 +3052,8 @@ def main():
     f32 = run_multistream(model, device)
     bf16 = run_bf16(model, device, f32)
     tiny_jobs = run_tiny_bf16(device, f32['steps'])
-    replay_cost(f32['mot'].tracker, device, N_STREAMS)
-    replay_cost(f32['mot'].tracker, device, 1)
+    res['slot_update'] = check_slot_update(device, N_STREAMS)[0]
+    res['slot_update']['streams16'] = check_slot_update(device, 16)[0]
     lap('multi-stream and bf16 (phases 6-7)')
     run_eval(model, device)
     lap('eval (phase 8)')

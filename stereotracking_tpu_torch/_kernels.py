@@ -29,7 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parent / '_build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-O3',
               '-std=c++17', '-Xcompiler', '-fPIC')
 KERNELS = ('stem', 'stage1', 'stage2', 'stage3', 'depth', 'assignment',
-           'nms', 'stage1_variants')
+           'nms', 'stage1_variants', 'slot_update')
 
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 _lib = None
@@ -63,6 +63,9 @@ _SIGNATURES = {
     'st_nms_keep': (_P, _P, _I, _I, _F, _F, _I, _P, _P, _P, _P),
     # rows, ctl (NULL: stamp rows[0] alone), n rows, n cols, phase, stream
     'st_phase_mark': (_P, _P, _I, _I, _I, _P),
+    # pointers (ops/slot_update_cuda.POINTERS), their count, ints
+    # (slot_update_cuda.DIMS), their count, stream
+    'st_slot_update': (_P, _I, _P, _I, _P),
 }
 
 

@@ -15,10 +15,13 @@ Where the JAX package branches on device (``lax.cond`` between the init
 path and the main path and for the reset at frame 0, the smoothing
 ``while_loop``), this port stays branch-free: both paths run for every
 stream and ``torch.where`` selects per stream, as ``vmap`` of ``lax.cond``
-does, and the smoothing replay runs a fixed trip count (``replay_bound``)
-whose extra iterations are exact no-ops.  The three assignments run on the
-inputs' device (ops/assignment.py).  So a step reads nothing back to the
-host and can be captured in a CUDA graph (models/captured_step.py).
+does.  The smoothing replay, the Kalman update of matched tracks and their
+bookkeeping run as one kernel on the card, which replays each recovered
+track's own ``unmatch_len``; on the CPU as an op chain of a fixed trip
+count (``replay_bound``) whose extra iterations are exact no-ops
+(ops/slot_update_cuda.py).  The three assignments run on the inputs'
+device (ops/assignment.py).  So a step reads nothing back to the host and
+can be captured in a CUDA graph (models/captured_step.py).
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ import torch
 
 from ..ops.assignment import linear_assignment_with_limit
 from ..ops.gmc import apply_warp_to_tracks
+from ..ops.slot_update_cuda import slot_update
 from ..structures.bbox import (bbox_area, bbox_cxcyah_to_xyxy,
                                bbox_iou_matrix, bbox_xyxy_to_cxcyah)
 from ..utils.devices import to_device
@@ -152,16 +156,6 @@ def _vel_direction_batch(boxes_from, boxes_to):
     return speed / norm[..., None]
 
 
-def _vel_direction(box_from, box_to):
-    c1, c2 = _centers(box_from), _centers(box_to)
-    speed = torch.stack([c2[..., 1] - c1[..., 1], c2[..., 0] - c1[..., 0]],
-                        -1)
-    norm = torch.sqrt(speed[..., 0] ** 2 + speed[..., 1] ** 2) + 1e-6
-    direction = speed / norm[..., None]
-    invalid = (box_from.sum(-1) < 0) | (box_to.sum(-1) < 0)
-    return torch.where(invalid[..., None], -1.0, direction)
-
-
 def _ocm_cost(track_boxes, state: TrackState, dets: Detections,
               cfg: TrackerConfig) -> torch.Tensor:
     ious = bbox_iou_matrix(track_boxes, dets.bboxes)
@@ -185,7 +179,8 @@ def _assign(cost, row_mask, col_mask, cfg: TrackerConfig):
 
 def replay_bound(cfg: TrackerConfig) -> int:
     """The largest ``miss_count`` a track can carry into the step that
-    recovers it, and so the smoothing replay's fixed trip count.
+    recovers it, and so the smoothing replay's fixed trip count on the CPU
+    and the most updates the kernel replays for one slot.
 
     A track's ``miss_count`` is reset to 0 whenever it is matched (its
     ``last_frame`` set to that frame) or spawned, and grows by one per main
@@ -323,7 +318,7 @@ def _init_path(state, dets, fid, cfg):
 
 
 def _main_path(state, dets, fid, cfg, warp=None, warp_on=None):
-    K, Nd = cfg.num_slots, dets.bboxes.shape[1]
+    K = cfg.num_slots
     gate = dets.valid & (dets.scores > cfg.obj_score_thr) & \
         (bbox_area(dets.bboxes) > cfg.min_det_area)
 
@@ -367,70 +362,10 @@ def _main_path(state, dets, fid, cfg, warp=None, warp_on=None):
     det_matched = det_slot >= 0
     slot_det = torch.where(row1 >= 0, row1, torch.where(row2 >= 0, row2,
                                                         row3))
-    slot_matched = slot_det >= 0
 
-    # 5-6. online smoothing for recovered tracks
-    safe_det = slot_det.clamp(0, Nd - 1).long()
-    match_bbox = dets.bboxes.gather(1, safe_det[..., None].expand(-1, -1, 4))
-    recovered = slot_matched & ~state.tracked
-    unmatch_len = torch.where(recovered, state.miss_count, 0)
-    shift = (match_bbox - state.last_bbox) / \
-        (unmatch_len[..., None].to(torch.float32) + 1.0)
-    mean = torch.where(recovered[..., None], state.saved_mean, state.mean)
-    cov = torch.where(recovered[..., None, None], state.saved_cov, state.cov)
-    for i in range(replay_bound(cfg)):      # no-ops past unmatch_len
-        virtual = state.last_bbox + float(i + 1) * shift
-        m2, c2 = kalman.update(mean, cov, bbox_xyxy_to_cxcyah(virtual))
-        apply = recovered & (i < unmatch_len)
-        mean = torch.where(apply[..., None], m2, mean)
-        cov = torch.where(apply[..., None, None], c2, cov)
-
-    # 7. Kalman update + bookkeeping for matched tracks
-    umean, ucov = kalman.update(mean, cov, bbox_xyxy_to_cxcyah(match_bbox))
-    mean = torch.where(slot_matched[..., None], umean, mean)
-    cov = torch.where(slot_matched[..., None, None], ucov, cov)
-    new_hits = torch.where(slot_matched, state.hits + 1, state.hits)
-    now_confirmed = state.tentative & slot_matched & \
-        (new_hits >= cfg.num_tentatives)
-    new_tentative = torch.where(now_confirmed, False, state.tentative)
-
-    R = cfg.ring_size
-    onehot = ((torch.remainder(state.obs_count, R)[..., None]
-               == torch.arange(R, device=state.obs_count.device))
-              & state.active[..., None])
-    obs_ring = torch.where(onehot[..., None], match_bbox[:, :, None, :],
-                           state.obs_ring)
-    obs_ring_valid = torch.where(onehot, slot_matched[..., None],
-                                 state.obs_ring_valid)
-    obs_count = torch.where(state.active, state.obs_count + 1,
-                            state.obs_count)
-    last_bbox = torch.where(slot_matched[..., None], match_bbox,
-                            state.last_bbox)
-    tmp = state._replace(obs_ring=obs_ring, obs_ring_valid=obs_ring_valid,
-                         last_bbox=last_bbox)
-    vel = _vel_direction(_k_step_observation(tmp, cfg, obs_count),
-                         match_bbox)
-    velocity = torch.where(slot_matched[..., None], vel, state.velocity)
-
-    def at_det(x):
-        return x.gather(1, safe_det)
-
-    state = state._replace(
-        mean=mean, cov=cov, hits=new_hits, tentative=new_tentative,
-        tracked=torch.where(state.active, slot_matched, state.tracked),
-        obs_ring=obs_ring, obs_ring_valid=obs_ring_valid,
-        obs_count=obs_count, velocity=velocity,
-        miss_count=torch.where(
-            slot_matched, 0,
-            torch.where(state.active, state.miss_count + 1,
-                        state.miss_count)).to(torch.int32),
-        last_bbox=last_bbox,
-        last_frame=torch.where(slot_matched, fid[:, None],
-                               state.last_frame).to(torch.int32),
-        scores=torch.where(slot_matched, at_det(dets.scores), state.scores),
-        scales=torch.where(slot_matched, at_det(dets.scales), state.scales),
-        depths=torch.where(slot_matched, at_det(dets.depths), state.depths),
-        labels=torch.where(slot_matched, at_det(dets.labels), state.labels))
+    # 5-7. online smoothing of recovered tracks, Kalman update and
+    # bookkeeping of matched tracks: one kernel on the card
+    state = slot_update(state, slot_det, dets, fid, cfg)
 
     # 8. new tracks for unmatched gated dets; 9. eviction
     is_new = gate & ~det_matched

@@ -281,6 +281,8 @@ def _sequential_eval(args, model, dataset, videos, img_scale, f,
         frame_ids = dataset.video_frames(vid)
         prev_match = {}
         first_step = trace.last_step() + 1
+        # read from the card (a sync) only for the log
+        replay_counts = None if logger is None else trace.replay_counts()
         loader = PrefetchIterator(frame_ids, dataset.load_frame,
                                   num_workers=4)
         for local_f, sample in enumerate(loader):
@@ -303,7 +305,8 @@ def _sequential_eval(args, model, dataset, videos, img_scale, f,
             logger.log(n_frames, dict(
                 video_frames=len(frame_ids),
                 fps=n_frames / max(time.perf_counter() - t_start, 1e-9),
-                **trace.summary(first_step)), prefix='eval')
+                **trace.summary(first_step, replay_counts)),
+                prefix='eval')
     return n_frames, time.perf_counter() - t_start
 
 
@@ -375,6 +378,8 @@ def _multistream_eval(args, model, dataset, videos, img_scale, f,
                                          prev_match[s])
 
         first_step = trace.last_step() + 1
+        # read from the card (a sync) only for the log
+        replay_counts = None if logger is None else trace.replay_counts()
         t_start = time.perf_counter()
         pending = None            # one step behind: step t is issued
         for t, (samples, entry) in enumerate(it):   # before t-1 is read
@@ -394,7 +399,8 @@ def _multistream_eval(args, model, dataset, videos, img_scale, f,
             logger.log(n_frames, dict(
                 group_frames=L * real,
                 fps=n_frames / max(elapsed, 1e-9),
-                **trace.summary(first_step)), prefix='eval')
+                **trace.summary(first_step, replay_counts)),
+                prefix='eval')
     return n_frames, elapsed
 
 

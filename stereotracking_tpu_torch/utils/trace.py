@@ -29,6 +29,12 @@ use.
   error bound.  ``phase_rows`` gives device stamps on the host's clock,
   interpolating between the offsets measured (the first when the device is
   made ready, another when rows newer than the last are read).
+- The replay counter (``replay_counter``): the Kalman updates the
+  tracker's smoothing replay applied, and the steps, counted by the step
+  itself (ops/slot_update_cuda.py), on the card by the kernel into a
+  device tensor, on the CPU into a host tensor; nothing is counted inside
+  ``unmarked``.  ``replay_counts`` reads both, a synchronisation: after
+  the steps, never inside one.
 
 The rings hold ``STEPS`` steps and ``SPAN_SLOTS`` spans; ``wrapped`` says
 whether either has dropped rows since ``reset``.  The tracer follows the
@@ -114,6 +120,9 @@ class Tracer:
         self._ctl = None            # (2,) int64 on the device: step, open
         self._stamp = None          # (1,) pinned int64: the offset's stamp
         self._offsets = []          # (device ns, offset ns, bound ns)
+        # replay updates, steps: on the CPU, and on the card once ready
+        self._host_replay = torch.zeros(2, dtype=torch.int64)
+        self._replay = None
 
     # ---------------------------------------------------------- writing
 
@@ -181,6 +190,7 @@ class Tracer:
         self._rows_t.numpy()[:] = self._ring()     # the CPU's rows, if any
         self._rows = self._rows_t.numpy()
         self._ctl = torch.zeros(2, dtype=torch.int64, device=device)
+        self._replay = torch.zeros(2, dtype=torch.int64, device=device)
         self._stamp = torch.zeros(1, dtype=torch.int64, pin_memory=True)
         self.device_offset_ns()
 
@@ -197,6 +207,30 @@ class Tracer:
             self._rows_t.data_ptr(), self._ctl.data_ptr(), self.steps,
             _COLS, col, _kernels.stream_ptr(like))
         _kernels.check(status, 'phase_mark')
+
+    def replay_counter(self, like: torch.Tensor) -> Optional[torch.Tensor]:
+        """The (2,) int64 counter of replay updates and steps that a
+        tracker step on ``like``'s device adds to: the host's on the CPU,
+        the card's on the card (made ready first, outside a capture).  None
+        inside ``unmarked``, on a card the tracer does not follow, and in a
+        capture before ``ready``."""
+        if self._unmarked:
+            return None
+        if like.device.type != 'cuda':
+            return self._host_replay
+        if self._ctl is None:
+            if torch.cuda.is_current_stream_capturing():
+                return None
+            self.ready(like.device)
+        return self._replay if like.device == self._ctl.device else None
+
+    def replay_counts(self) -> Tuple[int, int]:
+        """(replay updates, steps) counted since the last reset, the host's
+        and the card's together; reading the card's waits for it."""
+        n = self._host_replay.clone()
+        if self._replay is not None:
+            n += self._replay.cpu()
+        return int(n[0]), int(n[1])
 
     def device_offset_ns(self) -> int:
         """The device's timer less the host's ``perf_counter_ns``, from the
@@ -242,6 +276,8 @@ class Tracer:
             self._rows[:] = 0
         if self._ctl is not None:
             self._ctl.zero_()
+            self._replay.zero_()
+        self._host_replay.zero_()
         self.step = self._host_step = self._n_spans = 0
         self._host_open = False
 
@@ -330,6 +366,24 @@ def ready(device: torch.device) -> None:
 
 def device_offset_ns() -> int:
     return TRACER.device_offset_ns()
+
+
+def replay_counter(like: torch.Tensor) -> Optional[torch.Tensor]:
+    return TRACER.replay_counter(like)
+
+
+def replay_counts() -> Tuple[int, int]:
+    return TRACER.replay_counts()
+
+
+def replay_updates_per_step(since: Tuple[int, int] = (0, 0)
+                            ) -> Optional[float]:
+    """Replay updates a tracker step (all its streams), over the steps
+    counted after ``since`` (an earlier ``replay_counts()``, by default the
+    last reset); None without a step."""
+    updates, steps = replay_counts()
+    steps -= since[1]
+    return (updates - since[0]) / steps if steps > 0 else None
 
 
 def offset() -> Optional[Tuple[int, int]]:
@@ -429,9 +483,12 @@ def span_total_s(name: str) -> Optional[float]:
     return float((spans['end'][sel] - spans['start'][sel]).sum()) * 1e-9
 
 
-def summary(first_step: int) -> Dict[str, float]:
+def summary(first_step: int, since: Optional[Tuple[int, int]] = None
+            ) -> Dict[str, float]:
     """The medians of ``phase.*_ms`` and ``host.*_ms`` over the finished
-    steps numbered ``first_step`` on, for an operator's log."""
+    steps numbered ``first_step`` on, for an operator's log; given
+    ``since`` (``replay_counts()`` before those steps), also
+    ``tracker.replay_updates``, the replay updates a step after it."""
     rows = phase_rows()
     rows = rows[(rows['step'] >= first_step) & (rows['finish'] > 0)]
     out = {}
@@ -440,4 +497,7 @@ def summary(first_step: int) -> Dict[str, float]:
             m = median(v)
             if m is not None:
                 out[k] = m
+    updates = None if since is None else replay_updates_per_step(since)
+    if updates is not None:
+        out['tracker.replay_updates'] = updates
     return out

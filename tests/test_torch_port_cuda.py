@@ -736,3 +736,143 @@ def test_phase_clock_rows_on_the_card(dev):
             <= done + bound, (r, span, done)
     assert np.isin(['frames', 'key', 'capture', 'load', 'replay', 'clone',
                     'fetch'], spans['name']).all()
+
+
+def _cpu(t):
+    return type(t)(*(x.cpu() for x in t))
+
+
+def _same_slots(got, want, what):
+    """The slot update's fields: ints and bools equal, floats within the
+    tracker test's tolerance (the kernel's matrix products fuse in
+    another order than PyTorch's)."""
+    from stereotracking_tpu_torch.ops.slot_update_cuda import OUT_FIELDS
+    for name in OUT_FIELDS:
+        a, b = getattr(got, name).cpu(), getattr(want, name)
+        assert a.dtype == b.dtype, (what, name)
+        if a.dtype.is_floating_point:
+            torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-4,
+                                       equal_nan=True,
+                                       msg=lambda m: f'{what} {name}: {m}')
+        else:
+            assert torch.equal(a, b), (what, name)
+
+
+@pytest.mark.parametrize('weight_iou', [False, True])
+def test_slot_update_kernel_on_tracker_steps(dev, monkeypatch, weight_iou):
+    """The slot-update kernel (steps 5-7 of the main path) against its
+    plain version at every call of 210 tracker steps of 16 streams with K =
+    Nd = 64 on the card, the plain version on CPU copies of the kernel's
+    inputs: streams 0-11 recover tracks after every gap of 1-29 frames,
+    streams 12-15 hold more tracks than slots (a full bank), streams 3 and
+    13 restart at frame 0 at step 100, and streams 0-7 carry a
+    camera-motion warp.  Ints and bools equal, floats within the tracker
+    test's tolerance; the tracer's counter grows by the plain version's
+    replay updates and one step a call."""
+    import numpy as np
+    from device_step_cases import recovery_frames
+    from stereotracking_tpu_torch.models import tracker as tt
+    from stereotracking_tpu_torch.ops import slot_update_cuda as su
+    from stereotracking_tpu_torch.utils import trace
+    n_streams, n_steps, k = 16, 210, 64
+    cfg = tt.TrackerConfig(num_slots=k, num_dets=k,
+                           weight_iou_with_det_scores=weight_iou)
+    frames = [recovery_frames(n_steps, k, gaps=tuple(range(1, 30)),
+                              steady=20, seed=s) if s < 12 else
+              recovery_frames(n_steps, k, crowd=True, seed=s)
+              for s in range(n_streams)]
+    kernel = tt.slot_update
+    seen = dict(gaps=set(), full=0, calls=0)
+
+    def checked(state, slot_det, dets, fid, cfg):
+        before = trace.replay_counts()
+        got = kernel(state, slot_det, dets, fid, cfg)
+        after = trace.replay_counts()
+        want, updates = su.slot_update_plain(_cpu(state), slot_det.cpu(),
+                                             _cpu(dets), fid.cpu(), cfg)
+        _same_slots(got, want, f'call {seen["calls"]}')
+        assert (after[0] - before[0], after[1] - before[1]) == \
+            (int(updates), 1)
+        recovered = (slot_det >= 0) & ~state.tracked
+        gaps = state.miss_count[recovered]
+        seen['gaps'] |= set(gaps.tolist())
+        seen['full'] += int(state.active.all(1).sum())
+        seen['calls'] += 1
+        return got
+
+    monkeypatch.setattr(tt, 'slot_update', checked)
+    rng = np.random.RandomState(0)
+    warp_on = torch.arange(n_streams, device=dev) < 8
+    state = tt.init_state(cfg, dev, n_streams)
+    for t in range(n_steps):
+        fids = [t - 100 if s in (3, 13) and t >= 100 else t
+                for s in range(n_streams)]
+        dets = tt.Detections(*(torch.stack(
+            [torch.from_numpy(fr[t][f]) for fr in frames]).to(dev)
+            for f in tt.Detections._fields))
+        warp = np.tile(np.eye(2, 3), (n_streams, 1, 1))
+        warp[:, :, :2] += rng.normal(0, 0.002, (n_streams, 2, 2))
+        warp[:, :, 2] += rng.normal(0, 1.5, (n_streams, 2))
+        state, _ = tt.step(state, dets, torch.tensor(fids, dtype=torch.int32,
+                                                     device=dev), cfg,
+                           torch.tensor(warp, dtype=torch.float32,
+                                        device=dev), warp_on)
+    assert seen['calls'] == n_steps
+    assert seen['gaps'] >= set(range(1, 30)), sorted(seen['gaps'])
+    assert seen['full'] > 0
+
+
+@pytest.mark.parametrize('gap', [0, 29])
+def test_slot_update_kernel_full_bank(dev, gap):
+    """A full bank of 16 x 64 confirmed tracks, each matched: tracked (one
+    update a slot, the main path) or recovered after 29 frames (30 a slot,
+    the most a step does), against the plain version; the counter grows by
+    16 x 64 x gap."""
+    from device_step_cases import slot_bank_case
+    from stereotracking_tpu_torch.models import tracker as tt
+    from stereotracking_tpu_torch.ops import slot_update_cuda as su
+    from stereotracking_tpu_torch.utils import trace
+    cfg = tt.TrackerConfig(num_slots=64, num_dets=64)
+    case = {k: torch.from_numpy(v).to(dev)
+            for k, v in slot_bank_case(16, 64, 64, gap=gap).items()}
+    state = tt.init_state(cfg, dev, 16)._replace(
+        **{f: case[f] for f in tt.TrackState._fields if f in case})
+    dets = tt.Detections(**{f: case['det_' + f]
+                            for f in tt.Detections._fields})
+    before = trace.replay_counts()
+    got = su.slot_update(state, case['slot_det'], dets, case['fid'], cfg)
+    after = trace.replay_counts()
+    want, updates = su.slot_update_plain(_cpu(state), case['slot_det'].cpu(),
+                                         _cpu(dets), case['fid'].cpu(), cfg)
+    _same_slots(got, want, f'gap {gap}')
+    assert after[0] - before[0] == int(updates) == 16 * 64 * gap
+    assert not torch.equal(got.mean, state.mean)
+
+
+def test_replay_counter_counts_replayed_steps(dev):
+    """The counter of a replayed step: MultiStreamTracker's first call
+    warms up (not counted: its state is put back), captures and replays;
+    each of 4 calls counts one step; the replay updates equal those of
+    the eager steps from the same states."""
+    from stereotracking_tpu_torch.models.mot import (predict_frames_batched,
+                                                     preprocess_raw)
+    from stereotracking_tpu_torch.models.preprocessor import padded_shape
+    from stereotracking_tpu_torch.parallel.multistream import (
+        MultiStreamTracker, init_stream_states)
+    from stereotracking_tpu_torch.utils import trace
+    cfg, det, img, disp = _captured_world(dev)
+    ms = MultiStreamTracker(cfg, 8, module=det, device=dev)
+    trace.ready(dev)
+    trace.reset()
+    for t in range(4):
+        ms.track_raw(img[t], disp[t], [t] * 8)
+    replayed = trace.replay_counts()
+    assert replayed[1] == 4 and ms._step.captures == 1
+    states = init_stream_states(cfg, 8, dev)
+    for t in range(4):
+        inputs = preprocess_raw(img[t], disp[t], *padded_shape(H, W))
+        states, _ = predict_frames_batched(det, states, inputs, [t] * 8, cfg)
+    both = trace.replay_counts()
+    assert both == (2 * replayed[0], 8)
+    assert trace.replay_updates_per_step(since=replayed) == \
+        replayed[0] / 4

@@ -301,3 +301,32 @@ def test_summary_of_an_interval(monkeypatch):
         np.median([_phase('detector', s) * 1e-6 for s in steps]))
     assert got['host.key_ms'] == pytest.approx(
         np.median([(300 + s) * 1e-6 for s in steps]))
+
+
+def test_summary_adds_the_replay_updates(monkeypatch):
+    """Given the counts read before the steps, the operator's summary adds
+    the replay updates a step since then; with no step since, nothing."""
+    t = _synthetic(monkeypatch, 12)
+    t._host_replay += torch.tensor([40, 8])
+    got = trace.summary(5, since=(10, 2))
+    assert got['tracker.replay_updates'] == 30 / 6
+    assert 'tracker.replay_updates' not in trace.summary(5, since=(40, 8))
+    assert 'tracker.replay_updates' not in trace.summary(5)
+
+
+def test_replay_updates_reader(tracer, monkeypatch):
+    """``portbench/metrics/tracker.replay_updates.py``: the counter's
+    updates a step over the run's steps (CPU steps here, the plain version
+    counting); None before a step and for a program without the
+    counter."""
+    read = _reader('tracker.replay_updates')
+    assert read({'steps': 1}) is None
+    ms = MultiStreamTracker(small_cfg(), 2, device='cpu', seed=0)
+    img, disp = _frames(4, 2)
+    for t in range(4):
+        fetch_result(ms.track_raw(img[t], disp[t], [t, t]))()
+    updates, steps = trace.replay_counts()
+    assert steps == 4
+    assert read({'steps': 1}) == updates / 4
+    monkeypatch.delattr(trace, 'replay_updates_per_step')
+    assert read({'steps': 1}) is None
