@@ -8,6 +8,12 @@ in one process.
         --control-seeds 7,8,9 [--faults nms_none,... --fault-seeds 4,5,6] \
         [--seconds 2] [--out readings.json]
 
+``--faults`` also takes the harness's other systems: ``control_tf32``
+(the reference with the kernels' layers in bfloat16, as the program runs
+them, and the rest in TF32), ``program_tf32`` and ``program_tf32_conv``
+(the program with TF32 switched on in cuBLAS and cuDNN, or in cuDNN
+alone).
+
 Prints one JSON line per run and, at the end, each number's largest
 program reading and smallest control reading (and each fault's).  Needs
 a CUDA card.
@@ -26,7 +32,8 @@ from portbench import check, faults, harness  # noqa: E402
 
 def one_run(bench: Path, workload: str, seed: int, seconds: float,
             device: str, kind: str) -> dict:
-    """``kind``: 'program', 'control', or a fault of faults.py."""
+    """``kind``: a system of the harness ('program', 'control', ...) or a
+    fault of faults.py."""
     if kind in faults.NMS_FAULTS:
         with faults.nms_fault(kind):
             return harness.run_cell(bench, workload, seed, seconds, False,

@@ -14,11 +14,16 @@ A run: build the program (``MultiStreamTracker`` of the port, with the
 benchmark's seed-made weights), make the frames, warm up the cell's own
 shapes (the step's CUDA graph is captured there), then drive ``track_raw``
 for ``--seconds`` in a closed loop with one step in flight ahead: the call
-for step t + 1 is made before the wait for step t's result.  With
+for step t + 1 is made before the wait for step t's result.  The stage
+backends that the port resolves for the cell's model on a card are
+recorded once (``stage_backends``); the stage kernels' bound and the
+control's precision follow them.  With
 ``--trace 1`` a stretch of the same loop runs under ``torch.profiler``
 after the window.  Then the steps that follow the window run from the
 program's own state, the program is freed, and the reference judges what
-the program returned (check.py).
+the program returned (check.py).  Two guards join its numbers, for the
+precision the configuration states where no number tells it: TF32 left
+as the run set it, and, in a traced run, no TF32 kernel launched.
 """
 from __future__ import annotations
 
@@ -49,6 +54,13 @@ FOLLOW_STEPS = 3      # steps after the window, from the program's state
 WARMUP_STEPS = 5
 TRACE_STEPS = 30
 DTYPES = {'bfloat16': torch.bfloat16, 'float32': torch.float32}
+# flops.stage_kernel_work's entries whose backend is another stage's
+KERNEL_STAGE = {'disp_stem': 'stem'}
+# systems that a run can put in the loop: the program; the controls
+# (reference/lower.py); the program with TF32 switched on, (cuBLAS, cuDNN)
+TF32_PROGRAMS = {'program_tf32': (True, True),
+                 'program_tf32_conv': (False, True)}
+CONTROLS = ('control', 'control_tf32')
 
 
 # ------------------------------------------------------------ the catalog
@@ -144,13 +156,21 @@ class ProgramSystem:
 
 class ControlSystem:
     """The reference one precision step down (reference/lower.py), in the
-    program's place: the control that ``correct`` has to reject."""
+    program's place: the control that ``correct`` has to reject.  Each
+    layer steps down from what the program computes it in: the stages
+    that ``backends`` runs as kernels from bfloat16, the rest from
+    ``dtype``.  With ``kernels_as_run`` (the system 'control_tf32') the
+    kernels' layers stay in bfloat16, as the program runs them, and the
+    tracker is rounded to TF32: the control of the float32 layers alone."""
 
     def __init__(self, model_cfg: dict, dtype: str, n_streams: int,
-                 state_dict, device):
+                 state_dict, device, backends: Dict[str, str],
+                 kernels_as_run: bool = False):
         self.ref = Reference(model_cfg, state_dict, device,
-                             round_tracker=lower.round_bf16)
-        lower.lower_detector(self.ref.module, dtype)
+                             round_tracker=lower.round_tf32_state
+                             if kernels_as_run else lower.round_bf16)
+        lower.lower_detector(self.ref.module, dtype, backends,
+                             kernels_as_run)
         self.n = n_streams
         self._state = self.ref.init_state(n_streams)
         self.captures = 0
@@ -285,18 +305,39 @@ def shapes(cell: Cell):
     return (h, w, *md.padded_shape(h, w), sf)
 
 
+def stage_backends(model_cfg: dict) -> Dict[str, str]:
+    """'cuda' or 'torch' for each of the stem and stages 1-3: what the
+    port's ``apis/builder.resolve_stage_backends`` gives ``model_cfg`` on a
+    card (a pure function), on whatever device this run is."""
+    from stereotracking_tpu_torch.apis.builder import resolve_stage_backends
+    return dict(resolve_stage_backends(model_cfg, 'cuda')._asdict())
+
+
+def kernel_bound_s(det: dict, h: int, w: int, oh: int, ow: int,
+                   backends: Dict[str, str]) -> float:
+    """The least time of one frame's stem and stage kernels: the bounds
+    of ``flops.stage_kernel_work`` summed over the stages that
+    ``backends`` runs as kernels (the disparity stem's with the stem's)."""
+    return sum(flops.bound_s(*x) for k, x in flops.stage_kernel_work(
+        det, h, w, oh, ow).items()
+        if backends[KERNEL_STAGE.get(k, k)] == 'cuda')
+
+
 def run_cell(bench_path: Path, workload: str, seed: int, seconds: float,
              trace: bool, device='cuda', since_start=None,
              system: str = 'program', wrap=None) -> dict:
     """One run of ``workload``; returns the result line's object.
-    ``system`` 'control' puts the control in the program's place; ``wrap``,
+    ``system`` 'control' or 'control_tf32' puts a control in the program's
+    place, 'program_tf32' or 'program_tf32_conv' runs the program with TF32
+    switched on (the float32 cell's own lower precision); ``wrap``,
     when given, is applied to the system before the run (the tests break
     the timed path with it)."""
     since_start = since_start or setup_clock()
     cell = load_cell(bench_path, workload)
     dev = torch.device(device)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    tf32 = TF32_PROGRAMS.get(system, (False, False))
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 \
+        = tf32
     torch.backends.cudnn.benchmark = False
     torch.set_num_threads(min(4, torch.get_num_threads()))
     model_cfg = cell.config['model']
@@ -305,16 +346,17 @@ def run_cell(bench_path: Path, workload: str, seed: int, seconds: float,
     h, w, oh, ow, sf = shapes(cell)
     det_cfg = md.detector_config(model_cfg)
     dtype = DTYPES[cell.config['dtype']]
+    backends = stage_backends(model_cfg)
 
     video = frames.make_video(n_streams, h, w, int(tr['ring']), seed,
                               int(tr.get('objects', 6)),
                               float(tr.get('speed_px', 4.0)))
     sd = seeded_state_dict(det_cfg, seed, dev)
-    if system == 'program':
-        sysm = ProgramSystem(model_cfg, dtype, n_streams, sd, dev)
-    else:
+    if system in CONTROLS:
         sysm = ControlSystem(model_cfg, cell.config['dtype'], n_streams,
-                             sd, dev)
+                             sd, dev, backends, system == 'control_tf32')
+    else:
+        sysm = ProgramSystem(model_cfg, dtype, n_streams, sd, dev)
     del sd
     if wrap is not None:
         sysm = wrap(sysm)
@@ -329,7 +371,7 @@ def run_cell(bench_path: Path, workload: str, seed: int, seconds: float,
     min_steps = int(tr['min_steps'])
     samples = plan_samples(seed, START_STEPS, min_steps, SAMPLED_STEPS)
     keep = set(range(START_STEPS)) | set(samples)
-    if system == 'program':
+    if system not in CONTROLS:
         win = drive(sysm, video, sf, 0, min_steps, seconds, keep=keep)
     else:
         win = drive(sysm, video, sf, 0, min_steps, 0.0, keep=keep,
@@ -350,6 +392,11 @@ def run_cell(bench_path: Path, workload: str, seed: int, seconds: float,
                    keep=set(range(nxt, nxt + FOLLOW_STEPS)),
                    max_steps=FOLLOW_STEPS)
     del sysm
+    now = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    # the reference judges in float32 whatever ran
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     gc.collect()
     if dev.type == 'cuda':
         torch.cuda.empty_cache()
@@ -368,16 +415,24 @@ def run_cell(bench_path: Path, workload: str, seed: int, seconds: float,
         correct = False
         print('the step was captured again inside the window',
               file=sys.stderr)
+    # the precision the configuration states, where no number can tell
+    # it: TF32 switched on or off inside the run (cuBLAS, cuDNN), and, in
+    # a traced run, TF32 kernels launched
+    guards = {'tf32_switched': float(now != tf32)}
+    if traced is not None:
+        guards['tf32_kernels'] = float(tracelib.tf32_kernels(traced))
+    for name, v in guards.items():
+        rows[name] = {'value': v, 'limit': 0}
+        correct = correct and v == 0
 
     rec = dict(setup_s=setup_s, streams=n_streams, steps=win.n,
                window_s=win.window_s, call_s=win.call_end - win.call_start,
                latency_s=win.done - win.call_start,
                flops_per_step=n_streams * flops.detector_flops(
                    det_cfg._asdict(), oh, ow),
-               stage_bound_s=n_streams * sum(
-                   flops.bound_s(*x) for x in flops.stage_kernel_work(
-                       det_cfg._asdict(), h, w, oh, ow).values()),
-               trace=traced, device=dev.type)
+               stage_bound_s=n_streams * kernel_bound_s(
+                   det_cfg._asdict(), h, w, oh, ow, backends),
+               stage_backends=backends, trace=traced, device=dev.type)
     specs = cell.per_layer if trace else cell.end_to_end
     metrics = {}
     for m in specs:
@@ -385,6 +440,7 @@ def run_cell(bench_path: Path, workload: str, seed: int, seconds: float,
         if v is not None:
             metrics[m['name']] = {'value': float(v), 'unit': m['unit']}
     device_info = _device_info(dev, peak)
+    device_info['stage_backends'] = backends
     if traced is not None:
         device_info['busy_s'] = tracelib.busy_s(traced)
         device_info['window_s'] = traced.window_s

@@ -1,6 +1,7 @@
-"""The stem and stage 1-3 kernels' bounds (the larger of their operations
-over the bf16 peak and their bytes over HBM bandwidth, portbench/flops.py)
-over their device time, per step, in %."""
+"""The bounds of the stem and stage kernels that the program runs (the
+larger of their operations over the bf16 peak and their bytes over HBM
+bandwidth, portbench/flops.py; only the stages whose backend the run
+records as 'cuda') over those kernels' device time, per step, in %."""
 from portbench import tracelib
 
 

@@ -1,5 +1,6 @@
 """Device ms per step of cuDNN's and cuBLAS's kernels (the convolutions of
-stage 4, the PAFPN and the head; the tracker's small matrix products)."""
+the stages that run on the modules, the PAFPN and the head, FFT ones
+included; the tracker's small matrix products)."""
 from portbench import tracelib
 
 

@@ -7,21 +7,34 @@ the host's operations, and the stretch itself (from the first call of
 from __future__ import annotations
 
 import json
+import re
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
 DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
 HOST_CATS = ('cpu_op', 'cuda_runtime', 'cuda_driver', 'user_annotation')
 
 # the program's hand-written kernels, by the names of their __global__
-# functions (stereotracking_tpu_torch/csrc/*.cu)
-STAGE_KERNELS = ('focus_stem_kernel', 'stage1_', 'stage_csp_kernel',
-                 'stage3_')
-TRACK_KERNELS = ('box_depths_kernel', 'jv_kernel', 'nms_kernel')
-# convolution and matrix-product kernels of cuDNN and cuBLAS
+# functions (stereotracking_tpu_torch/csrc/*.cu), matched whole: a
+# library kernel's name may hold one of them (cuBLAS's ``..._stage3_...``)
+STAGE_KERNELS = frozenset((
+    'focus_stem_kernel', 'stage1_dual_kernel', 'stage1_mma_kernel',
+    'stage_csp_kernel', 'stage3_fused_kernel', 'stage3_entry_kernel',
+    'stage3_chain_kernel'))
+TRACK_KERNELS = frozenset(('box_depths_kernel', 'jv_kernel', 'nms_kernel'))
+# convolution and matrix-product kernels of cuDNN and cuBLAS, by parts of
+# their names; cuDNN's FFT convolutions (its ``DSE::`` transforms and their
+# complex products) among them
 LIBRARY_KERNELS = ('cudnn', 'cublas', 'xmma', 'cutlass', 'gemm', 'gemv',
                    'implicit_convolve', 'convolve_', 'winograd', 'fft2d',
+                   'DSE::', 'pointwise_mult_and_sum_complex',
                    'nchwToNhwc', 'nhwcToNchw', 'sm90_', 'sm80_', 'sm75_',
                    'fprop', 'dgrad', 'wgrad', 'magma', 'trsm', 'potrf')
+
+# TF32 kernels of cuDNN and cuBLAS, by parts of their names
+# (``sm90_xmma_fprop_implicit_gemm_f32f32_tf32f32_f32_...``, cuBLAS's
+# CUTLASS ``tensorop_s1688gemm``): no cell runs one, since each states
+# float32 with TF32 off or a 16-bit dtype
+TF32_KERNELS = ('tf32', 's1688gemm')
 
 
 class Event(NamedTuple):
@@ -88,17 +101,34 @@ def busy_s(tr: Trace) -> float:
     return sum(b - a for a, b in merged(tr.device, tr.start, tr.end))
 
 
+def function_name(name: str) -> str:
+    """The unqualified function of a kernel's name as the profiler gives
+    it: ``void (anonymous namespace)::stage1_mma_kernel<8, 64>(...)`` ->
+    ``stage1_mma_kernel``; a name with no argument list is itself."""
+    name = name.replace('(anonymous namespace)::', '')
+    head = re.split(r'[<(]', name, maxsplit=1)[0].split()
+    return head[-1].rsplit('::', 1)[-1] if head else ''
+
+
 def kind(e: Event) -> str:
     """'copy', 'stage', 'track', 'library' or 'torch' for a device event."""
     if e.cat != 'kernel':
         return 'copy'
-    if any(k in e.name for k in STAGE_KERNELS):
+    fn = function_name(e.name)
+    if fn in STAGE_KERNELS:
         return 'stage'
-    if any(k in e.name for k in TRACK_KERNELS):
+    if fn in TRACK_KERNELS:
         return 'track'
     if any(k in e.name for k in LIBRARY_KERNELS):
         return 'library'
     return 'torch'
+
+
+def tf32_kernels(tr: Trace) -> int:
+    """Launches of TF32 kernels (``TF32_KERNELS``) in the trace."""
+    return sum(e.cat == 'kernel' and any(k in e.name.lower()
+                                         for k in TF32_KERNELS)
+               for e in tr.device)
 
 
 def device_s(tr: Trace, keep: Callable[[Event], bool]) -> float:
